@@ -1,0 +1,204 @@
+"""Inference engine with per-stage timing (port of
+side_tpu/runtime/detector.py, single-frame path).
+
+`load_and_pre` runs the host stages (image load, affine warp to the input
+size, uint8); `dispatch` enqueues the device work — normalisation, the
+network, sigmoid + `ddd_decode`, and the fused tail — without waiting;
+`finish` waits (`torch.cuda.synchronize()` fences), fetches one (K, 13)
+array and applies the score filter.  `run` does the three.
+
+The Detector runs on `cuda` unless the caller passes `device="cpu"`; with
+no CUDA device and no explicit device it raises.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data import geometry as G
+from ..data.dataset import warp_affine
+from ..models.factory import create_model
+from ..ops import decode as dec
+from ..ops import deform_conv as dc
+from ..postprocess.device_tail import run_tail
+from .. import weights
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller names a device; never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: side_tpu_torch runs on the GPU; pass "
+                "device='cpu' to run the plain CPU path explicitly")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _imread(path: str) -> np.ndarray:
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("reading image files needs OpenCV (cv2); pass "
+                           "the frames as arrays instead") from e
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
+class Detector:
+    def __init__(self, cfg: Config, device=None, seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.reference_exact and os.environ.get("SIDE_TPU_TORCH_DCN") is None:
+            dc.set_dcn_mode("exact")
+        model = create_model(cfg, seed=seed)
+        if cfg.load_model:
+            weights.load_npz(model, cfg.load_model)
+        self.model = model.to(self.device).eval()
+        self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
+                                 device=self.device)
+        self.std = torch.tensor(cfg.std, dtype=torch.float32,
+                                device=self.device)
+
+    # -------------------------------------------------------------- stages
+    def pre_process(self, image, image_right, calib):
+        cfg = self.cfg
+        height, width = image.shape[:2]
+        c = np.array([width / 2.0, height / 2.0], np.float32)
+        if cfg.keep_res:
+            s = np.array([cfg.input_w, cfg.input_h], np.int32)
+        else:
+            s = np.array([width, height], np.int32)
+        trans = G.get_affine_transform(c, s, 0, [cfg.input_w, cfg.input_h])
+
+        def prep(im):
+            return warp_affine(im, trans, cfg.input_w, cfg.input_h)[None]
+
+        trans_out = G.get_affine_transform(
+            c, s, 0, [cfg.output_w, cfg.output_h])
+        trans_inv = G.get_affine_transform(
+            c, s, 0, [cfg.output_w, cfg.output_h], inv=True)
+        meta = {"c": c, "s": s, "calib": calib, "trans": trans_out,
+                "trans_inv": trans_inv}
+        return prep(image), prep(image_right), meta
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC -> normalised float32, on the device."""
+        if x.dtype == torch.uint8:
+            return (x.float() / 255.0 - self.mean) / self.std
+        return x
+
+    @torch.inference_mode()
+    def network(self, batch: Dict[str, torch.Tensor]):
+        """Normalisation + the network on the device: its output dict."""
+        batch = dict(batch)
+        batch["input"] = self._normalise(batch["input"])
+        batch["input_right"] = self._normalise(batch["input_right"])
+        return self.model(batch)
+
+    @torch.inference_mode()
+    def decode(self, out: Dict[str, torch.Tensor]):
+        """Sigmoid + ddd_decode of the network's output: (dets, dets_r,
+        info (B, K, 10))."""
+        hm = torch.sigmoid(out["hm"])
+        dets, dets_r, info = dec.ddd_decode(
+            hm, out["kept_type"], out["dim"], out["orien"], out["wh"],
+            out["reg"], grid_size=self.cfg.grid, K=self.cfg.K)
+        return dets, dets_r, torch.cat([info, out["depth"]], dim=2)
+
+    def process(self, batch: Dict[str, torch.Tensor]):
+        """Network + decode on the device: (dets, dets_r, info (B, K, 10))."""
+        return self.decode(self.network(batch))
+
+    def merge_outputs(self, results: Dict[int, np.ndarray]):
+        """Per-class peak_thresh filter."""
+        out = {}
+        for cls, rows in results.items():
+            rows = np.asarray(rows)
+            out[cls] = rows[rows[:, -1] > self.cfg.peak_thresh] \
+                if len(rows) else rows
+        return out
+
+    # --------------------------------------------------- pipelined stages
+    def load_and_pre(self, images_or_paths, calib):
+        """Host stages: image load + affine pre-process."""
+        t0 = time.time()
+        if isinstance(images_or_paths[0], str):
+            image = _imread(images_or_paths[0])
+            image_right = _imread(images_or_paths[1])
+        else:
+            image, image_right = images_or_paths
+        t_load = time.time()
+        inp, inp_right, meta = self.pre_process(image, image_right, calib)
+        dev = self.device
+        p2 = np.asarray(calib[2], np.float64).reshape(3, 4)
+        p3 = np.asarray(calib[3], np.float64).reshape(3, 4)
+        batch = {
+            "input": torch.from_numpy(inp).to(dev),
+            "input_right": torch.from_numpy(inp_right).to(dev),
+            "fb": torch.tensor([p2[0, 3] - p3[0, 3]], dtype=torch.float32,
+                               device=dev),
+        }
+        t_pre = time.time()
+        return {"batch": batch, "meta": meta, "image": image,
+                "image_right": image_right, "t0": t0,
+                "load": t_load - t0, "pre": t_pre - t_load}
+
+    @torch.inference_mode()
+    def dispatch(self, pre, run_align: bool = True) -> Dict:
+        """Enqueue the network, decode and fused tail without waiting."""
+        t = time.time()
+        dets, dets_r, info = self.process(pre["batch"])
+        rows, classes = run_tail(dets[0], dets_r[0], info[0], pre["image"],
+                                 pre["image_right"], pre["meta"], self.cfg,
+                                 run_align=run_align)
+        pre.update(handles=(rows, classes), run_align=run_align,
+                   t_dispatch=time.time() - t)
+        return pre
+
+    def finish(self, pending) -> Dict:
+        """Wait for the device, fetch the rows, filter by score.
+
+        `net` is the host time from dispatch to the device's end (enqueue +
+        wait): eager PyTorch may block while enqueueing, so the wait alone
+        would under-count the device program."""
+        t_net0 = time.time()
+        rows, classes = pending["handles"]
+        _sync(self.device)
+        t_net = time.time()
+        rows = rows.cpu().numpy()
+        classes = classes.cpu().numpy()
+        t_dec = time.time()
+        keep = rows[:, 12] > self.cfg.peak_thresh
+        results = {}
+        for cls in range(self.cfg.num_classes):
+            results[cls + 1] = rows[keep & (classes == cls)]
+        t_post = time.time()
+        results = self.merge_outputs(results)
+        t_end = time.time()
+        return {
+            "results": results,
+            "tot": t_end - pending["t0"], "load": pending["load"],
+            "pre": pending["pre"],
+            "net": pending["t_dispatch"] + (t_net - t_net0),
+            "dec": t_dec - t_net, "post": t_post - t_dec,
+            "merge": t_end - t_post,
+        }
+
+    def run(self, images_or_paths, image_id=None, calib=None,
+            run_align: bool = True) -> Dict:
+        pre = self.load_and_pre(images_or_paths, calib)
+        return self.finish(self.dispatch(pre, run_align=run_align))
