@@ -5,17 +5,40 @@
 
 Phases, each of which must pass:
   1. toolchain: CUDA version, device, capability 9.0, power limit; build the
-     DCN forward kernel from side_tpu_torch/csrc/dcn_fwd.cu;
-  2. the kernel against its plain PyTorch version on the card at the 7
-     distinct DeformBlock shapes of the serving path (B=2), in bf16 and f32
-     with R=1, and R=-1 (exact) at one shape; times, bound, F.conv2d;
-  3. the main path: Detector(Config()) at full width (384x1280, bf16, K=100)
-     on random seeded weights (He-scaled, offset convs perturbed) runs 3
-     frames of random 375x1242 stereo pairs through load_and_pre, dispatch
-     and finish (Detector.run); every frame must launch the DCN kernel 16
-     times and give K finite rows;
+     DCN kernels from side_tpu_torch/csrc (dcn_fwd.cu and dcn_bwd.cu, one
+     nvcc each, started together);
+  2. the forward kernel against its plain PyTorch version on the card at the
+     7 distinct DeformBlock shapes of the serving path (B=2), in bf16 and
+     f32 with R=1, and R=-1 (exact) at one shape; times, bound, F.conv2d;
+  3. the serving path: Detector(Config()) at full width (384x1280, bf16,
+     K=100) on random seeded weights (He-scaled, offset convs perturbed)
+     runs 3 frames of random 375x1242 stereo pairs through load_and_pre,
+     dispatch and finish (Detector.run); every frame must launch the DCN
+     forward kernel 16 times, the backward kernels never, and give K finite
+     rows;
   4. a small-input check: the same network on the card and on the CPU (f32,
-     TF32 off) agree to 1e-3 of each head's largest value.
+     TF32 off) agree to 1e-3 of each head's largest value;
+  5. the backward kernels K2 (dcn_bwd_dx) and K3 (dcn_bwd_dcoord) against
+     autograd of the plain version on the card, every cotangent, at the 7
+     DeformBlock shapes of a training step (B=8: 4 stereo pairs), bf16 and
+     f32 with R=1, and R=-1 at one shape, offsets beyond +-R included;
+     times, plain times and bounds, and the forward kernel's at the same
+     shapes;
+  6. the training path: Trainer(Config()) at full width (384x1280, bf16,
+     max_objs 50, roi_size 16) on He-scaled seeded weights with perturbed
+     offsets, fed 4 rendered stereo pairs held in memory, takes 1 warm-up
+     and 3 timed steps (Trainer.train_step); every loss part finite, the
+     parameters and BatchNorm statistics move, and the forward kernel, K2
+     and K3 each launch 16 times per step; step time, its forward /
+     backward / optimizer split and the peak device memory;
+  7. a small train-step check: one f32 step on the card and one on the CPU
+     from the same weights and batch (TF32 off, offsets inside the window),
+     in training and in eval-mode BatchNorm: losses to 1e-3; gradients,
+     each relative to its tensor's largest value, to 0.1 at most and 1e-2
+     in the median with running statistics, 0.5 and 0.1 with batch
+     statistics.  f32 sum order moves these gradients (ReLU and max-pool
+     kinks, amplified by batch statistics): the CPU's own noise floor under
+     a 1e-6 input change is printed beside them.
 Prints a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits non-zero if any phase fails or no
 CUDA device is present.
@@ -44,6 +67,9 @@ SERVING_SHAPES = [
     ((128, 48, 160, 64), 4),
     ((64, 96, 320, 64), 5),
 ]
+# the 7 DeformBlock shapes of a training step run at 4 stereo pairs = 8
+# images (both views through one trunk pass); same counts per image pair
+TRAIN_BATCH = 8
 BATCH = 2
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # tensor cores, dense
@@ -51,6 +77,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # tensor cores, dense
 # kernel vs plain version, max |diff| / max |plain|: f32 differs only in the
 # order of the 9*Cin-term sums; bf16 output rounds once more (2 bf16 ulps)
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# K2/K3 vs autograd of the plain version, per cotangent, max |diff| / max
+# |plain|: f32 sum order and atomics; bf16: the plain version also rounds
+# the column gradient and d_x to bf16 (csrc/dcn_bwd.cu)
+BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 REPS = 20
 STAGES = ("tot", "pre", "net", "dec", "post")
 
@@ -90,7 +120,7 @@ def power_line() -> str:
 
 
 def phase_toolchain() -> dict:
-    from side_tpu_torch.ops.dcn_cuda import DCN_FWD
+    from side_tpu_torch.ops.dcn_cuda import LIBRARIES, build_all
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     log(f"[toolchain] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -98,26 +128,27 @@ def phase_toolchain() -> dict:
     log(f"[toolchain] nvidia-smi: {power_line()}")
     check(cap == (9, 0), f"needs a Hopper card (9.0), got {cap}")
     t0 = time.perf_counter()
-    path = DCN_FWD.build()
-    log(f"[toolchain] dcn_fwd built in {time.perf_counter() - t0:.2f} s "
-        f"-> {path.name}")
+    paths = build_all()
+    log(f"[toolchain] {', '.join(lib.source.name for lib in LIBRARIES)} "
+        f"built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+        f"parallel) -> {', '.join(p.name for p in paths)}")
     return {"name": name, "capability": cap}
 
 
-def _inputs(cin, h, w, cout, dtype, gen):
+def _inputs(cin, h, w, cout, dtype, gen, batch=BATCH):
     dev = "cuda"
-    x = torch.randn(BATCH, h, w, cin, generator=gen, device=dev).to(dtype)
-    off = (torch.rand(BATCH, h, w, 9, 2, generator=gen, device=dev) * 3.0
+    x = torch.randn(batch, h, w, cin, generator=gen, device=dev).to(dtype)
+    off = (torch.rand(batch, h, w, 9, 2, generator=gen, device=dev) * 3.0
            - 1.5)
-    mask = torch.rand(BATCH, h, w, 9, generator=gen, device=dev)
+    mask = torch.rand(batch, h, w, 9, generator=gen, device=dev)
     wt = torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (
         9 * cin) ** 0.5
     bias = torch.randn(cout, generator=gen, device=dev) * 0.1
     return x, off, mask, wt, bias
 
 
-def _bound_ms(cin, h, w, cout, dtype):
-    pix = BATCH * h * w
+def _bound_ms(cin, h, w, cout, dtype, batch=BATCH):
+    pix = batch * h * w
     flops = pix * 9 * cin * (2 * cout + 8)   # contraction + bilinear sample
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (pix * cin * item + pix * 27 * 4 + 9 * cin * cout * 4
@@ -176,6 +207,7 @@ def phase_main_path() -> dict:
     from side_tpu_torch.runtime.synthetic import (he_scale, kitti_calib,
                                                   perturb_offsets,
                                                   random_frame)
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
     cfg = Config()
     det = Detector(cfg)     # cuda by default
     he_scale(det.model)
@@ -183,13 +215,15 @@ def phase_main_path() -> dict:
     rng = np.random.RandomState(0)
     calib = kitti_calib()
     frames = [random_frame(rng) for _ in range(3)]
-    DCN_FWD.launches = 0
+    for kern in KERNELS.values():
+        kern.launches = 0
     outs, raw = [], []
     for f in frames:        # Detector.run, with the tail's raw rows kept
         pending = det.dispatch(det.load_and_pre(f, calib))
         raw.append(pending["handles"][0])
         outs.append(det.finish(pending))
     launches = DCN_FWD.launches
+    bwd_launches = sum(k.launches for k in KERNELS.values()) - launches
     for i, (out, rows) in enumerate(zip(outs, raw)):
         # every decoded slot's row, before the score filter: finite
         check(tuple(rows.shape) == (cfg.K, 13), f"rows {tuple(rows.shape)}")
@@ -203,6 +237,8 @@ def phase_main_path() -> dict:
             f"top score {rows[:, 12].max().item():.4f}")
     check(launches == 16 * len(frames),
           f"expected {16 * len(frames)} dcn_fwd launches, got {launches}")
+    check(bwd_launches == 0, f"serving launched {bwd_launches} backward "
+          "kernels")
     log(f"[main] dcn_fwd launches: {launches} over {len(frames)} frames")
     return {"launches": launches,
             "frames": [{k: out[k] for k in STAGES} for out in outs]}
@@ -238,48 +274,365 @@ def phase_small_reference() -> None:
     check(bool(torch.isfinite(got["depth"]).all()), "non-finite depth")
 
 
+def _bwd_bound_ms(cin, h, w, cout, dtype):
+    """Least time of K2 and K3 at one shape: FLOPs over the dtype's peak
+    (the in-kernel products g·W_k^T and, for K3, col^T·g, plus the per-
+    sample arithmetic) against the bytes each must move (inputs read once,
+    outputs written once) over the memory rate."""
+    pix = TRAIN_BATCH * h * w
+    item = torch.tensor([], dtype=dtype).element_size()
+    mac = pix * 9 * cin * cout
+    geo = pix * 27 * 4 + 9 * cin * cout * 4          # offsets, mask, weight
+    g_bytes = pix * cout * item
+    dx = {"flops": 2 * mac + pix * 9 * cin * 9,      # + mask*w_q, 4 corners
+          "bytes": g_bytes + geo + pix * cin * item}
+    dc = {"flops": 4 * mac + pix * 9 * cin * 30,     # + col, val, derivatives
+          "bytes": pix * cin * item + g_bytes + geo + pix * 27 * 4
+          + 9 * cin * cout * 4}
+    out = {}
+    for name, work in (("dcn_bwd_dx", dx), ("dcn_bwd_dcoord", dc)):
+        t_ops = work["flops"] / PEAK_FLOPS[dtype]
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_backward_kernels() -> dict:
+    """K2 and K3 against autograd of the plain version at the training
+    shapes; per kernel and case the largest error over its cotangents."""
+    from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
+                                             DCN_FWD)
+    from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    rows = []
+    cases = [(shape, n, dtype, 1) for shape, n in SERVING_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for (cin, h, w, cout), n, dtype, radius in cases:
+        x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen,
+                                         TRAIN_BATCH)
+        g = torch.randn(x.shape[:3] + (cout,), generator=gen,
+                        device="cuda").to(dtype)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, off, mask, wt, bias)]
+        DcnFunction.apply(*leaves, radius).backward(g)
+        got = [t.grad for t in leaves]
+        ref_in = [t.clone().requires_grad_(True)
+                  for t in (x, off, mask, wt, bias)]
+        ref_out = deform_conv_plain(*ref_in, radius)
+        want = torch.autograd.grad(ref_out, ref_in[:4], g, retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("x", "offset", "mask", "weight"), got, want):
+            diff = (a.float() - b.float()).abs().max().item()
+            errs[name] = (diff, diff / max(b.float().abs().max().item(),
+                                           1e-30))
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
+            fwd_plain = time_ms(lambda: deform_conv_plain(
+                x, off, mask, wt, bias, radius))
+        k2_ms = time_ms(lambda: DCN_BWD_DX(g, off, mask, wt, radius))
+        k3_ms = time_ms(lambda: DCN_BWD_DCOORD(x, g, off, mask, wt, radius))
+        k2_plain = time_ms(lambda: torch.autograd.grad(
+            ref_out, ref_in[0], g, retain_graph=True))
+        k3_plain = time_ms(lambda: torch.autograd.grad(
+            ref_out, ref_in[1:4], g, retain_graph=True))
+        bounds = _bwd_bound_ms(cin, h, w, cout, dtype)
+        bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, TRAIN_BATCH)
+        del ref_out
+        for name, ms, plain_ms, parts in (
+                ("dcn_fwd", fwd_ms, fwd_plain, ()),
+                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",)),
+                ("dcn_bwd_dcoord", k3_ms, k3_plain,
+                 ("offset", "mask", "weight"))):
+            row = {"kernel": name, "cin": cin, "h": h, "w": w, "cout": cout,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "radius": radius, "per_step": n,
+                   "max_abs_err": max((errs[p][0] for p in parts),
+                                      default=None),
+                   "max_rel_err": max((errs[p][1] for p in parts),
+                                      default=None),
+                   "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+            rows.append(row)
+            log(f"[backward] {json.dumps(row)}")
+            if not parts:
+                continue        # the forward is checked in phase 2
+            check(np.isfinite(row["max_rel_err"]) and
+                  row["max_rel_err"] <= BWD_TOLERANCE[dtype],
+                  f"{name} disagrees with autograd of the plain version: "
+                  f"{row} {errs}")
+    return {"rows": rows}
+
+
+def _batch_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith("running_mean") or k.endswith("running_var")}
+
+
+def phase_training(steps: int = 3) -> dict:
+    """The training path at full width: 1 warm-up + `steps` timed steps of
+    Trainer.train_step; then one more step split into forward, backward and
+    optimizer between fences (not part of the counted run)."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.data.synthetic import scene_batch
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    from side_tpu_torch.runtime.trainer import Trainer
+    cfg = Config(batch_size=4)
+    rng = np.random.RandomState(20)
+    t0 = time.perf_counter()
+    batches = [scene_batch(cfg, rng, cfg.batch_size, cfg.max_objs)
+               for _ in range(steps + 2)]
+    log(f"[train] {len(batches)} batches of {cfg.batch_size} rendered "
+        f"pairs in {time.perf_counter() - t0:.2f} s (host, set-up)")
+    model = create_model(cfg, seed=21)
+    he_scale(model)
+    perturb_offsets(model, seed=22)
+    tr = Trainer(cfg, model, steps_per_epoch=100)      # cuda by default
+    params0 = {k: v.detach().clone() for k, v in tr.params.items()}
+    stats0 = _batch_stats(model)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    step_ms, losses = [], []
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.train_step(tr.to_device(batches[i]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in stats.items()})
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, (ms, st) in enumerate(zip(step_ms, losses)):
+        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {ms:.1f} ms "
+            + " ".join(f"{k} {v:.4f}" for k, v in st.items()))
+        check(all(np.isfinite(v) for v in st.values()),
+              f"step {i}: non-finite loss part {st}")
+    n_steps = steps + 1
+    for name, count in launches.items():
+        check(count == 16 * n_steps,
+              f"{name}: {count} launches in {n_steps} steps, expected "
+              f"{16 * n_steps}")
+    moved = sum(not torch.equal(params0[k], v.detach())
+                for k, v in tr.params.items())
+    check(moved >= len(params0) - 6, f"only {moved} of {len(params0)} "
+          "parameter tensors changed")
+    stats1 = _batch_stats(model)
+    bs_moved = sum(not torch.equal(stats0[k], v) for k, v in stats1.items())
+    check(bs_moved == len(stats0), f"only {bs_moved} of {len(stats0)} "
+          "BatchNorm statistics changed")
+    # the split, on one more batch, between fences
+    split = {}
+    batch = tr.to_device(batches[-1])
+    tr.model.train()
+    for p in tr.params.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, _ = tr.loss(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    total.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tr.optimizer.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    split = {"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+             "optimizer_ms": (t3 - t2) * 1e3}
+    timed = step_ms[1:]
+    out = {"step_ms": timed, "step_ms_median": statistics.median(timed),
+           "warmup_ms": step_ms[0], "split": split,
+           "peak_mem_gib": peak / 2 ** 30, "launches": launches,
+           "steps": n_steps, "pairs_per_step": cfg.batch_size,
+           "params_moved": moved, "params": len(params0)}
+    log(f"[train] {json.dumps(out)}")
+    return out
+
+
+def _interior_offsets(model, seed):
+    """Offset/mask convs with a tiny kernel and dy/dx biases in (0.3, 0.7):
+    every DCN samples inside the window, away from the kinks of the
+    bilinear derivative (tests/test_torch_train.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith("offset_mask"):
+                mod.weight.mul_(0.0).add_(torch.randn(
+                    mod.weight.shape, generator=gen) * 1e-3)
+                b = torch.randn(27, generator=gen) * 0.5
+                b[0::3] = torch.rand(9, generator=gen) * 0.4 + 0.3
+                b[1::3] = torch.rand(9, generator=gen) * 0.4 + 0.3
+                mod.bias.copy_(b)
+
+
+def phase_small_train_reference() -> dict:
+    """One f32 train step on the card against the same on the CPU (the
+    plain DCN with autograd): the kernel path against the plain path end to
+    end, with --uncert.  The gradients of this deep random network move with
+    the order of f32 sums (ReLU and max-pool kinks, and with batch
+    statistics their amplification; tests/test_torch_train.py): the CPU
+    run is repeated with the input moved by 1e-6 to print that noise floor
+    beside the card-vs-CPU difference, and the bounds sit above both."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.data.synthetic import scene_batch
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.synthetic import he_scale
+    from side_tpu_torch.runtime.trainer import Trainer, normalize_images
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(input_h=128, input_w=256, compute_dtype="float32",
+                 max_objs=8, roi_size=8, uncert=True)
+    batch = scene_batch(cfg, np.random.RandomState(30), 2, cfg.max_objs)
+    base = create_model(cfg, seed=31)
+    he_scale(base)
+    _interior_offsets(base, seed=32)
+    noise = torch.randn(batch["input"].shape,
+                        generator=torch.Generator().manual_seed(33)) * 1e-6
+
+    def step(dev, mode, eps):
+        model = create_model(cfg, seed=31)
+        model.load_state_dict(base.state_dict())
+        tr = Trainer(cfg, model, steps_per_epoch=10, device=dev)
+        model.train(mode == "train")
+        b = tr.to_device(batch)
+        if eps:
+            b["input"] = normalize_images(b, tr.mean, tr.std)["input"] + \
+                noise.to(tr.device)
+        total, stats = tr.loss(b)
+        total.backward()
+        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .detach().cpu() for k, p in tr.params.items()}
+        return {k: v.item() for k, v in stats.items()}, grads
+
+    def compare(a, b):
+        (want_s, want_g), (got_s, got_g) = a, b
+        loss_err = max(abs(got_s[k] - v) / max(abs(v), 1e-3)
+                       for k, v in want_s.items())
+        top = max(float(g.abs().max()) for g in want_g.values())
+        errs = [float((got_g[k] - g).abs().max()) /
+                max(float(g.abs().max()), 1e-4 * top)
+                for k, g in want_g.items()]
+        return {"loss_rel_err": loss_err, "grad_err_max": max(errs),
+                "grad_err_median": statistics.median(errs)}
+
+    out = {}
+    bounds = {"train": (0.5, 0.1), "eval": (0.1, 1e-2)}
+    for mode in ("train", "eval"):
+        cpu = step("cpu", mode, False)
+        out[mode] = compare(cpu, step("cuda", mode, False))
+        out[mode]["cpu_noise_floor"] = compare(cpu, step("cpu", mode, True))
+        log(f"[small-train] {mode}-mode BatchNorm, card vs CPU: "
+            f"{json.dumps(out[mode])}")
+        grad_max, grad_median = bounds[mode]
+        check(out[mode]["loss_rel_err"] <= 1e-3 and
+              out[mode]["grad_err_max"] <= grad_max and
+              out[mode]["grad_err_median"] <= grad_median,
+              f"{mode}: card and CPU train steps disagree: {out[mode]}")
+    return out
+
+
+def _per_unit(rows, key, count_key):
+    return sum(r[key] * r[count_key] for r in rows)
+
+
+def _bound_by(rows, count_key):
+    """The kind of limit that contributes most of the summed bound."""
+    by_kind = {kind: sum(r["bound_ms"] * r[count_key] for r in rows
+                         if r["bound_by"] == kind)
+               for kind in ("operations", "bytes")}
+    return max(by_kind, key=by_kind.get)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
-    from side_tpu_torch.ops.dcn_cuda import DCN_FWD, SOURCE
+    from side_tpu_torch.ops.dcn_cuda import BWD_LIB, FWD_LIB
+    t_start = time.perf_counter()
     dev = phase_toolchain()
     kern = phase_kernels()
     main_path = phase_main_path()
     phase_small_reference()
+    bwd = phase_backward_kernels()
+    train = phase_training()
+    small_train = phase_small_train_reference()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
-    per_frame = lambda key: sum(r[key] * r["per_frame"] for r in bf16)
-    # the frame's bound is the sum of the layers' bounds; name the kind of
-    # limit that contributes most of it
-    by_kind = {kind: sum(r["bound_ms"] * r["per_frame"] for r in bf16
-                         if r["bound_by"] == kind)
-               for kind in ("operations", "bytes")}
-    bound_by = max(by_kind, key=by_kind.get)
-    kernels = {"kernels": [{
+    fwd_step = [r for r in bwd["rows"] if r["kernel"] == "dcn_fwd"
+                and r["dtype"] == "bfloat16" and r["radius"] == 1]
+    root = FWD_LIB.source.parents[2]
+    entries = [{
         "name": "dcn_fwd", "route": "cuda",
-        "source": str(SOURCE.relative_to(SOURCE.parents[2])),
+        "source": str(FWD_LIB.source.relative_to(root)),
         "replaces": "side_tpu/ops/dcn_pallas.py:240",
         "replaces_kernels": ["side_tpu/ops/dcn_pallas.py:240 _dcn_kernel",
                              "side_tpu/ops/dcn_pallas.py:402 "
                              "_dcn_kernel_packed"],
         "launches": main_path["launches"],
+        "launches_path": "serving, 3 frames",
+        "launches_training": train["launches"]["dcn_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "max_rel_err_bf16": max(r["max_rel_err"] for r in kern["rows"]
                                 if r["dtype"] == "bfloat16"),
         "max_rel_err_f32": max(r["max_rel_err"] for r in kern["rows"]
                                if r["dtype"] == "float32"),
-        "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
-        "bound_ms": per_frame("bound_ms"), "bound_by": bound_by,
+        "ms": _per_unit(bf16, "ms", "per_frame"),
+        "plain_ms": _per_unit(bf16, "plain_ms", "per_frame"),
+        "bound_ms": _per_unit(bf16, "bound_ms", "per_frame"),
+        "bound_by": _bound_by(bf16, "per_frame"),
         "library_ms": None,
-        "conv2d_ref_ms": per_frame("conv2d_ref_ms"),
+        "unit": "one serving frame (16 launches, B=2, bf16)",
+        "conv2d_ref_ms": _per_unit(bf16, "conv2d_ref_ms", "per_frame"),
+        "training_step": {
+            key: _per_unit(fwd_step, key, "per_step")
+            for key in ("ms", "plain_ms", "bound_ms")},
         "checked_shapes": len({(r["cin"], r["h"], r["w"], r["cout"])
                                for r in kern["rows"]}),
         "per_shape": kern["rows"],
-    }]}
-    print(json.dumps(kernels), flush=True)
+    }]
+    for name, replaces in (("dcn_bwd_dx",
+                            "side_tpu/ops/dcn_pallas_bwd.py:104"),
+                           ("dcn_bwd_dcoord",
+                            "side_tpu/ops/dcn_pallas_bwd.py:193")):
+        rows = [r for r in bwd["rows"] if r["kernel"] == name]
+        step = [r for r in rows if r["dtype"] == "bfloat16"
+                and r["radius"] == 1]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": str(BWD_LIB.source.relative_to(root)),
+            "replaces": replaces,
+            "launches": train["launches"][name],
+            "launches_path": f"training, {train['steps']} steps",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err_bf16": max(r["max_rel_err"] for r in rows
+                                    if r["dtype"] == "bfloat16"),
+            "max_rel_err_f32": max(r["max_rel_err"] for r in rows
+                                   if r["dtype"] == "float32"),
+            "ms": _per_unit(step, "ms", "per_step"),
+            "plain_ms": _per_unit(step, "plain_ms", "per_step"),
+            "bound_ms": _per_unit(step, "bound_ms", "per_step"),
+            "bound_by": _bound_by(step, "per_step"),
+            "library_ms": None,
+            "unit": "one training step (16 launches, B=8, bf16)",
+            "per_shape": rows,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
+    log(f"[summary] train step {train['step_ms_median']:.1f} ms median, "
+        f"split {json.dumps(train['split'])}, peak "
+        f"{train['peak_mem_gib']:.2f} GiB; small-train check "
+        f"{json.dumps(small_train)}; script "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

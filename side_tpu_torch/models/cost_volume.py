@@ -1,5 +1,7 @@
 """Object-conditioned stereo cost volume and instance-depth estimator
-(port of side_tpu/models/cost_volume.py for inference).
+(port of side_tpu/models/cost_volume.py).  In training mode the
+BatchNorms of `CostVolumeNet` take their statistics over every RoI slot of
+the batch, the invalid zero-box GT slots included, as the JAX package's do.
 
 Volumes are NDHWC at the public functions, as in the JAX package:
 `build_cost_volume` returns (N, D, R, R, 3C); `CostVolumeNet` takes it and

@@ -1,9 +1,11 @@
 """DLA-34 backbone with deformable-conv aggregation upsampling, PyTorch.
 
-Port of side_tpu/models/dla.py for inference.  Submodules carry the names
-flax gives the JAX modules (`base`, `ConvBN_0`, `Tree_1`, `BatchNorm_0`,
-`dla_up/ida_0/proj_1`, `up_1`, `node_1`, `offset_mask`), so a JAX parameter
-path maps onto a `state_dict` key by a rename (see weights.py).
+Port of side_tpu/models/dla.py, for inference (`module.eval()`) and
+training (`module.train()`: batch-statistics BatchNorm).  Submodules carry
+the names flax gives the JAX modules (`base`, `ConvBN_0`, `Tree_1`,
+`BatchNorm_0`, `dla_up/ida_0/proj_1`, `up_1`, `node_1`, `offset_mask`), so
+a JAX parameter path maps onto a `state_dict` key by a rename (see
+weights.py).
 
 Activations are NCHW tensors in channels-last memory: a DeformBlock views
 them as NHWC without a copy for the DCN kernel.  Parameters stay float32;
@@ -62,10 +64,18 @@ def msra_init_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 
 class FoldedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 as ONE multiply-add (side_tpu
+    """BatchNorm over dim 1 applied as ONE multiply-add (side_tpu
     FoldedBatchNorm): a = scale * rsqrt(var + eps), b = bias - mean * a are
     folded per channel in f32, and under bf16 the apply runs in f32 with a
-    single rounding to bf16 (BatchNorm2d in bf16 would round each step)."""
+    single rounding to bf16 (BatchNorm2d in bf16 would round each step).
+
+    In training mode (`module.train()`) mean and var are the batch's, in f32
+    over every axis but the channel one, the variance biased and clipped at
+    0, max(E[x^2] - mean^2, 0), and the gradient flows through both; the
+    running statistics blend as 0.9 * old + 0.1 * batch (flax momentum 0.9).
+    F.batch_norm is not used: it would blend the unbiased variance."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -76,8 +86,19 @@ class FoldedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+        if self.training:
+            xf = x.float()
+            dims = [0] + list(range(2, x.dim()))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
         shape = (1, -1) + (1,) * (x.dim() - 2)
         a, b = a.view(shape), b.view(shape)
         if x.dtype == torch.float32:
@@ -165,8 +186,12 @@ class Tree(nn.Module):
             x1 = self.BasicBlock_0(x, residual)
             x2 = self.BasicBlock_1(x1)
             return self.Root_0([x2, x1] + children)
-        # the JAX Tree also projects a residual here that nothing reads; its
-        # ConvBN_0 exists for the parameter tree only
+        # the JAX Tree also projects a residual here that nothing reads: in
+        # training its BatchNorm still updates the running statistics, so
+        # the projection runs (without autograd) for them alone
+        if self.training and self.project:
+            with torch.no_grad():
+                self.ConvBN_0(bottom)
         x1 = self.Tree_0(x)
         children.append(x1)
         return self.Tree_1(x1, children)

@@ -1,15 +1,16 @@
-"""SIDE's flagship stereo network for inference (port of
-side_tpu/models/stereo_net.py).
+"""SIDE's flagship stereo network (port of side_tpu/models/stereo_net.py).
 
 Both views go through ONE DLA-34 pass at batch 2B; the `kept_type` head
 reads left features through a deep 256-channel stack, every other head the
-channel-concatenated stereo features; the RoIs of the top `cv_topk` decoded
-slots feed the cost volume and the rest fall back to disparity depth.
+channel-concatenated stereo features.  At inference the RoIs of the top
+`cv_topk` decoded slots feed the cost volume and the rest fall back to
+disparity depth; in training (`target=` GT boxes) the cost volume runs on
+every GT slot.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -68,10 +69,16 @@ class StereoNet(nn.Module):
             nn.init.constant_(getattr(head, f"Conv_{head.n_mid}").bias,
                               HM_BIAS)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                target: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
         """batch: input / input_right (B, H, W, 3) normalised NHWC, fb (B,).
-        Returns NHWC float32 head maps plus depth (B, K, 1), depth_logits
-        (B, cv_topk, D) and depth_bin (B, cv_topk, D)."""
+        target: GT (bbox, bbox_right, valid) of (B, K, 4), (B, K, 4), (B, K)
+        at feature resolution, as ops/decode.boxes_from_targets gives them;
+        None decodes the heads instead.  Returns NHWC float32 head maps plus
+        depth (B, K, 1), depth_logits (B, kcv, D) and depth_bin (B, kcv, D),
+        where kcv = K with a target and cv_topk without."""
         def nchw(t):
             return t.to(self.dtype).permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
@@ -89,9 +96,14 @@ class StereoNet(nn.Module):
 
         red = F.relu(self.feaReduce_bn(self.feaReduce(feats)))
         red = red.permute(0, 2, 3, 1)                      # NHWC
-        bbox, bbox_right, valid = dec.bbox_decode(
-            out["hm"], out["wh"] * self.wh_scale, out["reg"], K=self.topk)
-        kcv = min(self.cv_topk, self.topk) if self.cv_topk > 0 else self.topk
+        if target is not None:
+            bbox, bbox_right, valid = target
+            kcv = bbox.shape[1]                  # train: every GT slot
+        else:
+            bbox, bbox_right, valid = dec.bbox_decode(
+                out["hm"], out["wh"] * self.wh_scale, out["reg"], K=self.topk)
+            kcv = (min(self.cv_topk, self.topk) if self.cv_topk > 0
+                   else self.topk)
         K = bbox.shape[1]
         fb = batch["fb"].reshape(B).float()
         rois_l, rois_r, depth_bin = proposal_shift(

@@ -1,15 +1,23 @@
-"""Binding of the hand-written Hopper DCN forward kernel (csrc/dcn_fwd.cu).
+"""Bindings of the hand-written Hopper DCN kernels.
 
-The kernel replaces the JAX package's two Pallas forward kernels
-(side_tpu/ops/dcn_pallas.py:240 `_dcn_kernel` and :402 `_dcn_kernel_packed`).
-It is compiled with nvcc into a shared library with a plain C interface at
-first use, under `side_tpu_torch/_build/` (git-ignored), and loaded with
-ctypes.  Nothing is imported or built when this module is imported.
+    csrc/dcn_fwd.cu  `dcn_fwd`: the forward, replacing the JAX package's two
+        Pallas forward kernels (side_tpu/ops/dcn_pallas.py:240 `_dcn_kernel`
+        and :402 `_dcn_kernel_packed`);
+    csrc/dcn_bwd.cu  `dcn_bwd_dx` (K2, side_tpu/ops/dcn_pallas_bwd.py:104
+        `_dx_kernel`) and `dcn_bwd_dcoord` (K3, :193 `_dcoord_kernel`): the
+        backward.
 
-`DCN_FWD(x, offset, mask, weight, bias, radius)` launches the kernel on
-PyTorch's current stream for CUDA tensors and raises on anything it cannot
-take; it never falls back to the plain version.  `DCN_FWD.launches` counts
-the launches.
+Each source is compiled with nvcc into a shared library with a plain C
+interface at first use, under `side_tpu_torch/_build/` (git-ignored), and
+loaded with ctypes; `build_all()` compiles every source at once.  Nothing is
+imported or built when this module is imported.
+
+`DCN_FWD(x, offset, mask, weight, bias, radius)`,
+`DCN_BWD_DX(g, offset, mask, weight, radius)` and
+`DCN_BWD_DCOORD(x, g, offset, mask, weight, radius)` launch their kernel on
+PyTorch's current stream for CUDA tensors and raise on anything they cannot
+take; they never fall back to the plain version.  Each counts its launches
+in `.launches`.
 """
 
 from __future__ import annotations
@@ -21,11 +29,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dcn_fwd.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -37,50 +45,103 @@ def _nvcc() -> str:
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the DCN kernel "
-                           "is built from csrc/dcn_fwd.cu at first use")
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the DCN kernels "
+                           "are built from side_tpu_torch/csrc at first use")
     return found
 
 
-class DcnForwardKernel:
-    """ctypes wrapper of `dcn_fwd_launch` with a launch counter."""
+class CudaLibrary:
+    """One csrc/*.cu source, built into `_build/lib<name>_<hash>.so` and
+    loaded with ctypes; `signatures` gives each launch function's argtypes,
+    and `error_fn` names the function that turns an error code into text."""
 
-    def __init__(self):
-        self.launches = 0
+    def __init__(self, name: str, signatures, error_fn: str):
+        self.name = name
+        self.source = _PKG / "csrc" / f"{name}.cu"
+        self.signatures = signatures
+        self.error_fn = error_fn
         self._lib = None
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes() +
+        digest = hashlib.sha256(self.source.read_bytes() +
                                 " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"libdcn_fwd_{digest[:16]}.so"
+        return BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
 
-    def build(self) -> Path:
-        """Compile the kernel unless a library of this source exists."""
+    def start_build(self):
+        """Start nvcc unless a library of this source exists; returns the
+        process (None when there is nothing to build)."""
         path = self.library_path()
         if path.exists():
-            return path
+            return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        proc.output_path = tmp
+        return proc
+
+    def finish_build(self, proc) -> Path:
+        path = self.library_path()
+        if proc is not None:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
+            os.replace(proc.output_path, path)
         return path
 
-    def _load(self):
+    def build(self) -> Path:
+        return self.finish_build(self.start_build())
+
+    def load(self):
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
-                vp, ci = ctypes.c_void_p, ctypes.c_int
-                lib.dcn_fwd_launch.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-                lib.dcn_fwd_launch.restype = ci
-                lib.dcn_error_string.argtypes = [ci]
-                lib.dcn_error_string.restype = ctypes.c_char_p
+                for fn, argtypes in self.signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                err = getattr(lib, self.error_fn)
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
                 self._lib = lib
         return self._lib
+
+    def check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = getattr(self.load(), self.error_fn)(err)
+            raise RuntimeError(f"{what} launch failed: {msg.decode()}")
+
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+FWD_LIB = CudaLibrary("dcn_fwd", {
+    "dcn_fwd_launch": [_VP] * 6 + [_CI] * 7 + [_VP]}, "dcn_error_string")
+BWD_LIB = CudaLibrary("dcn_bwd", {
+    "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 7 + [_VP],
+    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 7 + [_VP]},
+    "dcn_bwd_error_string")
+LIBRARIES = (FWD_LIB, BWD_LIB)
+
+
+def build_all(libraries: Sequence[CudaLibrary] = LIBRARIES):
+    """Compile every source at once (one nvcc each); returns the paths."""
+    procs = [lib.start_build() for lib in libraries]
+    return [lib.finish_build(p) for lib, p in zip(libraries, procs)]
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    return 0 if x.dtype == torch.float32 else 1
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class DcnForwardKernel:
+    """`dcn_fwd_launch` with a launch counter."""
+
+    def __init__(self):
+        self.launches = 0
 
     def __call__(self, x: torch.Tensor, offset: torch.Tensor,
                  mask: torch.Tensor, weight: torch.Tensor,
@@ -88,33 +149,97 @@ class DcnForwardKernel:
         """x (B,H,W,C) bf16|f32; offset (B,H,W,9,2) f32 (dy, dx); mask
         (B,H,W,9) f32; weight (3,3,C,Cout) f32; bias (Cout,) f32; all
         contiguous on one CUDA device.  Returns (B,H,W,Cout) in x.dtype."""
-        _check(x, offset, mask, weight, bias)
+        _check(x, offset, mask, weight, bias=bias)
         B, H, W, C = x.shape
         Cout = weight.shape[-1]
-        lib = self._load()
+        lib = FWD_LIB.load()
         out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.dcn_fwd_launch(
-                x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                B, H, W, C, Cout, int(radius),
-                0 if x.dtype == torch.float32 else 1, stream)
-        if err != 0:
-            raise RuntimeError("dcn_fwd launch failed: " +
-                               lib.dcn_error_string(err).decode())
+        err = lib.dcn_fwd_launch(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, H, W, C, Cout, int(radius), _dtype_code(x), _stream(x.device))
+        FWD_LIB.check(err, "dcn_fwd")
         self.launches += 1
         return out
 
 
-def _check(x, offset, mask, weight, bias) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    B, H, W, C = x.shape
+class DcnBackwardDx:
+    """K2 (`dcn_bwd_dx_launch`): d_x of the DCN forward, with a launch
+    counter."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, g: torch.Tensor, offset: torch.Tensor,
+                 mask: torch.Tensor, weight: torch.Tensor,
+                 radius: int) -> torch.Tensor:
+        """g (B,H,W,Cout) bf16|f32, the cotangent of the forward's output;
+        offset, mask, weight as for the forward.  Returns d_x (B,H,W,C) in
+        g.dtype (the kernel sums into f32 and the result is cast once)."""
+        C = weight.shape[2] if weight.dim() == 4 else -1
+        _check(g, offset, mask, weight, x_shape=(*g.shape[:3], C))
+        if tuple(g.shape[3:]) != (weight.shape[-1],):
+            raise ValueError(f"g must end in Cout = {weight.shape[-1]}, got "
+                             f"{tuple(g.shape)}")
+        B, H, W, Cout = g.shape
+        lib = BWD_LIB.load()
+        dx = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+        err = lib.dcn_bwd_dx_launch(
+            g.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), dx.data_ptr(), B, H, W, C, Cout, int(radius),
+            _dtype_code(g), _stream(g.device))
+        BWD_LIB.check(err, "dcn_bwd_dx")
+        self.launches += 1
+        return dx.to(g.dtype)
+
+
+class DcnBackwardDcoord:
+    """K3 (`dcn_bwd_dcoord_launch`): d_offset, d_mask and d_weight of the DCN
+    forward, with a launch counter."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, g: torch.Tensor,
+                 offset: torch.Tensor, mask: torch.Tensor,
+                 weight: torch.Tensor, radius: int):
+        """x as for the forward; g (B,H,W,Cout) in x.dtype.  Returns
+        (d_offset (B,H,W,9,2), d_mask (B,H,W,9), d_weight (3,3,C,Cout)), all
+        f32."""
+        _check(x, offset, mask, weight, g=g)
+        B, H, W, C = x.shape
+        Cout = weight.shape[-1]
+        lib = BWD_LIB.load()
+        d_off = torch.empty((B, H, W, 9, 2), dtype=torch.float32,
+                            device=x.device)
+        d_mask = torch.empty((B, H, W, 9), dtype=torch.float32,
+                             device=x.device)
+        d_w = torch.zeros((3, 3, C, Cout), dtype=torch.float32,
+                          device=x.device)
+        err = lib.dcn_bwd_dcoord_launch(
+            x.data_ptr(), g.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), d_off.data_ptr(), d_mask.data_ptr(),
+            d_w.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
+            _stream(x.device))
+        BWD_LIB.check(err, "dcn_bwd_dcoord")
+        self.launches += 1
+        return d_off, d_mask, d_w
+
+
+def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None) -> None:
+    """Shapes, dtypes, device and contiguity of a DCN kernel's operands.  K2
+    reads no x: it passes g as `x` and x's shape as `x_shape`."""
+    shape = tuple(x.shape) if x_shape is None else tuple(x_shape)
+    if len(shape) != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {shape}")
+    B, H, W, C = shape
+    Cout = weight.shape[-1] if weight.dim() == 4 else -1
     want = {"offset": (B, H, W, 9, 2), "mask": (B, H, W, 9),
-            "weight": (3, 3, C, weight.shape[-1] if weight.dim() == 4 else -1),
-            "bias": (weight.shape[-1] if weight.dim() == 4 else -1,)}
-    got = {"offset": offset, "mask": mask, "weight": weight, "bias": bias}
+            "weight": (3, 3, C, Cout)}
+    got = {"offset": offset, "mask": mask, "weight": weight}
+    if bias is not None:
+        want["bias"] = (Cout,)
+        got["bias"] = bias
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got "
@@ -123,16 +248,30 @@ def _check(x, offset, mask, weight, bias) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    for name, t in dict(x=x, **got).items():
+    tensors = dict(x=x, **got)
+    if g is not None:
+        if tuple(g.shape) != (B, H, W, Cout):
+            raise ValueError(f"g must be {(B, H, W, Cout)}, got "
+                             f"{tuple(g.shape)}")
+        if g.dtype != x.dtype:
+            raise TypeError(f"g must be {x.dtype}, got {g.dtype}")
+        tensors["g"] = g
+    for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must lie on x's CUDA device "
                              f"({x.device}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.numel() >= 2 ** 31 or B * H * W * 18 >= 2 ** 31:
-        raise ValueError("dcn_fwd indexes with 32-bit offsets; input too large")
-    if B * H * W == 0 or weight.shape[-1] == 0:
-        raise ValueError("dcn_fwd needs a non-empty input and output")
+    if (B * H * W * C >= 2 ** 31 or B * H * W * 18 >= 2 ** 31
+            or B * H * W * max(Cout, 1) >= 2 ** 31):
+        raise ValueError("the DCN kernels index with 32-bit offsets; input "
+                         "too large")
+    if B * H * W == 0 or C == 0 or Cout <= 0:
+        raise ValueError("the DCN kernels need a non-empty input and output")
 
 
 DCN_FWD = DcnForwardKernel()
+DCN_BWD_DX = DcnBackwardDx()
+DCN_BWD_DCOORD = DcnBackwardDcoord()
+KERNELS = {"dcn_fwd": DCN_FWD, "dcn_bwd_dx": DCN_BWD_DX,
+           "dcn_bwd_dcoord": DCN_BWD_DCOORD}

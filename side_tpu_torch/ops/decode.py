@@ -112,3 +112,23 @@ def bbox_decode(heat, wh, reg, K: int = 100):
                             center_right + half_right], dim=2)
     valid = bbox.sum(dim=2) > 0
     return bbox, bbox_right, valid
+
+
+def boxes_from_targets(ind_float, wh, reg, output_w: int,
+                       wh_scale: float = 1.0):
+    """GT RoI boxes that feed the cost volume in training: bbox, bbox_right
+    (B, K, 4) at feature resolution and valid (B, K)."""
+    xs = torch.remainder(ind_float, output_w)
+    ys = torch.div(ind_float, output_w, rounding_mode="floor")
+    xs_right = xs + reg[:, :, 1]
+    xs = xs + reg[:, :, 0]
+    ys = ys + reg[:, :, 2]
+    center = torch.stack([xs, ys], dim=2)
+    center_right = torch.stack([xs_right, ys], dim=2)
+    half = 0.5 * wh[:, :, [0, 2]] * wh_scale
+    half_right = 0.5 * wh[:, :, [1, 2]] * wh_scale
+    bbox = torch.cat([center - half, center + half], dim=2)
+    bbox_right = torch.cat([center_right - half_right,
+                            center_right + half_right], dim=2)
+    valid = bbox.sum(dim=2) > 0
+    return bbox, bbox_right, valid

@@ -13,8 +13,10 @@ Two semantics, as in the JAX package:
     windowed (default, R = 1): offsets clamped to [-R, R] — the function the
         TPU kernels compute and that checkpoints trained on the TPU expect;
     exact: unbounded offsets — the reference DCNv2 function.
-`deform_conv2d` runs the Hopper kernel (ops/dcn_cuda.py) on CUDA tensors and
-the plain version below on CPU tensors.  The mode comes from the environment
+`deform_conv2d` runs the Hopper kernels (ops/dcn_cuda.py) on CUDA tensors:
+the forward `dcn_fwd`, and in the backward K2 `dcn_bwd_dx` and K3
+`dcn_bwd_dcoord` through `DcnFunction`.  CPU tensors take the plain version
+below, with ordinary autograd.  The mode comes from the environment
 (SIDE_TPU_TORCH_DCN = windowed | exact, SIDE_TPU_TORCH_DCN_RADIUS = R) or
 `set_dcn_mode` / `dcn_mode`.
 """
@@ -143,26 +145,50 @@ def deform_conv2d_exact(x, offset, mask, weight, bias=None):
     return deform_conv_plain(x, offset, mask, weight, bias, -1)
 
 
+class DcnFunction(torch.autograd.Function):
+    """The DCN forward kernel with the backward kernels as its gradient
+    (side_tpu/ops/dcn_pallas.py:964-1033 `_dcn_pallas` + `_dcn_bwd`): K2
+    gives d_x in x's dtype, K3 d_offset, d_mask and d_weight in f32, and
+    d_bias = sum of g stays a plain reduction, as in the JAX package
+    (dcn_pallas_bwd.py:493).  Operands as `DCN_FWD` takes them."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, radius: int):
+        from .dcn_cuda import DCN_FWD
+        ctx.radius = radius
+        ctx.save_for_backward(x, offset, mask, weight)
+        return DCN_FWD(x, offset, mask, weight, bias, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .dcn_cuda import DCN_BWD_DCOORD, DCN_BWD_DX
+        x, offset, mask, weight = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        need = ctx.needs_input_grad
+        d_x = d_off = d_mask = d_w = d_b = None
+        if need[0]:
+            d_x = DCN_BWD_DX(g, offset, mask, weight, ctx.radius)
+        if need[1] or need[2] or need[3]:
+            d_off, d_mask, d_w = DCN_BWD_DCOORD(x, g, offset, mask, weight,
+                                                ctx.radius)
+        if need[4]:
+            d_b = g.float().sum((0, 1, 2))
+        return d_x, d_off, d_mask, d_w, d_b, None
+
+
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    """DCN forward in the current mode: the Hopper kernel for CUDA tensors,
-    the plain version for CPU tensors.  Inference only."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, offset, mask, weight, bias)):
-        raise RuntimeError(
-            "deform_conv2d is inference-only in this port: its backward "
-            "kernels come with the training slice.  Call it under "
-            "torch.no_grad() / torch.inference_mode().")
+    """DCN in the current mode: the Hopper kernels for CUDA tensors (forward
+    and backward), the plain version with autograd for CPU tensors."""
     radius = dcn_radius_tag()
     if x.device.type == "cuda":
-        from .dcn_cuda import DCN_FWD
         if bias is None:
             bias = torch.zeros(weight.shape[-1], device=x.device)
-        return DCN_FWD(x.contiguous(), offset.float().contiguous(),
-                       mask.float().contiguous(), weight.float().contiguous(),
-                       bias.float().contiguous(), radius)
+        return DcnFunction.apply(
+            x.contiguous(), offset.float().contiguous(),
+            mask.float().contiguous(), weight.float().contiguous(),
+            bias.float().contiguous(), radius)
     return deform_conv_plain(x, offset, mask, weight, bias, radius)
 
 

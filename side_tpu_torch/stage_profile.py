@@ -1,10 +1,11 @@
-"""Where one serving frame's time goes on the GPU.
+"""Where one serving frame's, or one training step's, time goes on the GPU.
 
     python -m side_tpu_torch.stage_profile [--frames 5] [--out FILE]
+    python -m side_tpu_torch.stage_profile --train [--frames 5] [--out FILE]
 
-Runs the flagship Detector (Config(): 384x1280 input, bf16, K=100) on
-seeded random weights and random KITTI-size frames, as chip_smoke.py does,
-and reports two things:
+Serving: runs the flagship Detector (Config(): 384x1280 input, bf16, K=100)
+on seeded random weights and random KITTI-size frames, as chip_smoke.py
+does, and reports two things:
 
   * `stages`: each stage of a frame between `torch.cuda.synchronize()`
     fences, median over `--frames` frames after two warm-up frames: host
@@ -13,6 +14,12 @@ and reports two things:
   * `profile`: one more frame under torch.profiler: kernel launches, device
     busy time and its share of the frame's wall time, device time by kind
     of kernel and the 15 kernels of most device time.
+
+Training (`--train`): the flagship Trainer (Config(), batch 4 stereo pairs
+of rendered scenes held in memory, He-scaled seeded weights): `stages` are
+the forward + loss, backward and optimizer of a step between fences,
+median over `--frames` steps after two warm-up steps, and `profile` one
+more step under torch.profiler.
 
 Prints the card's name and power limit, then one JSON object per section;
 with `--out` also writes them to FILE.  Needs a CUDA device.
@@ -38,6 +45,9 @@ from .runtime.synthetic import (he_scale, kitti_calib, perturb_offsets,
 
 KINDS = (  # first match wins; lower-case substrings of kernel names
     ("dcn_fwd", ("dcn_fwd",)),
+    ("dcn_bwd_dx (K2)", ("dcn_bwd_dx",)),
+    ("dcn_bwd_dcoord (K3)", ("dcn_bwd_dcoord",)),
+    ("optimizer (foreach)", ("multi_tensor",)),
     ("convolution", ("conv", "implicit", "cudnn", "winograd", "fprop")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas")),
     ("sort / top-k", ("sort", "radix", "topk")),
@@ -91,13 +101,15 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_frame(det: Detector, frame, calib) -> dict:
+def profile_call(fn) -> dict:
+    """fn() under torch.profiler, ended by a device fence."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        det.run(frame, calib=calib)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -125,9 +137,52 @@ def profile_frame(det: Detector, frame, calib) -> dict:
     }
 
 
+def step_stages(tr, batch) -> dict:
+    """One training step, forward + loss, backward and optimizer each
+    between device fences; times in ms."""
+    tr.model.train()
+    for p in tr.params.values():
+        p.grad = None
+    b, t_up = _fenced(lambda: tr.to_device(batch))
+    (total, _), t_fwd = _fenced(lambda: tr.loss(b))
+    _, t_bwd = _fenced(total.backward)
+    _, t_opt = _fenced(tr.optimizer.step)
+    return {"upload": t_up, "forward": t_fwd, "backward": t_bwd,
+            "optimizer": t_opt}
+
+
+def train_profile(card: str, steps: int):
+    from .data.synthetic import scene_batch
+    from .models.factory import create_model
+    from .runtime.trainer import Trainer
+    cfg = Config(batch_size=4)
+    model = create_model(cfg, seed=21)
+    he_scale(model)
+    perturb_offsets(model, seed=22)
+    tr = Trainer(cfg, model, steps_per_epoch=100)
+    rng = np.random.RandomState(20)
+    batches = [scene_batch(cfg, rng, cfg.batch_size, cfg.max_objs)
+               for _ in range(steps + 3)]
+    for b in batches[:2]:
+        tr.train_step(tr.to_device(b))
+    torch.cuda.reset_peak_memory_stats()
+    runs = [step_stages(tr, b) for b in batches[2:-1]]
+    stages = {"card": card, "steps": len(runs), "pairs_per_step": 4,
+              "median_ms": {k: statistics.median(r[k] for r in runs)
+                            for k in runs[0]},
+              "min_ms": {k: min(r[k] for r in runs) for k in runs[0]},
+              "max_ms": {k: max(r[k] for r in runs) for k in runs[0]},
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    last = tr.to_device(batches[-1])
+    prof = {"card": card, **profile_call(lambda: tr.train_step(last))}
+    return stages, prof
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of a frame")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -138,6 +193,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if args.train:
+        stages, prof = train_profile(card, args.frames)
+        return _report(stages, prof, args.out)
     cfg = Config()
     det = Detector(cfg)
     he_scale(det.model)
@@ -153,12 +211,17 @@ def main(argv=None) -> int:
                             for k in runs[0]},
               "min_ms": {k: min(r[k] for r in runs) for k in runs[0]},
               "max_ms": {k: max(r[k] for r in runs) for k in runs[0]}}
-    prof = {"card": card, **profile_frame(det, frames[-1], calib)}
+    prof = {"card": card,
+            **profile_call(lambda: det.run(frames[-1], calib=calib))}
+    return _report(stages, prof, args.out)
+
+
+def _report(stages, prof, out) -> int:
     lines = [json.dumps({"stages": stages}), json.dumps({"profile": prof})]
     for line in lines:
         print(line, flush=True)
-    if args.out:
-        with open(args.out, "w") as fh:
+    if out:
+        with open(out, "w") as fh:
             fh.write("\n".join(lines) + "\n")
     return 0
 

@@ -9,10 +9,18 @@ layouts change as follows:
     BN scale / bias / mean / var -> weight / bias / running_mean / running_var
     DCN kernel (3, 3, Cin, Cout) and bias: kept
     offset_mask kernel (3, 3, Cin, 27) -> (27, Cin, 3, 3), channel order kept
-`load_npz` reads the JAX checkpoint format (runtime/checkpoint.py of the
-JAX package: `params::<path>`, `batch_stats::<path>`, `meta::dcn_radius`)
-into a model with the same shape-tolerant merge, and puts the port's DCN
-mode in line with the radius the checkpoint was trained with.
+`to_flax` is its inverse, so that a checkpoint the port writes loads in
+the JAX package.  `load_npz` reads the JAX checkpoint format
+(runtime/checkpoint.py of the JAX package: `params::<path>`,
+`batch_stats::<path>`, `meta::dcn_radius`) into a model with the same
+shape-tolerant merge, and puts the port's DCN mode in line with the radius
+the checkpoint was trained with.
+
+`jax_param_order` gives the order in which the JAX package's Adam state
+lists a model's parameters (`jax.tree.leaves` of {"loss_weight", "model"}:
+sorted keys at every level), so an optimizer state moves between the two
+packages leaf by leaf; `param_to_flax` / `param_from_flax` change one
+tensor's layout.
 """
 
 from __future__ import annotations
@@ -57,11 +65,9 @@ def _param_entry(path: str, a: np.ndarray):
     if leaf == "kernel":
         if _DCN_BLOCK.search(module):
             return f"{key}.kernel", a
-        if a.ndim == 4:                      # HWIO -> OIHW (also BilinearUp)
-            return f"{key}.weight", a.transpose(3, 2, 0, 1)
-        if a.ndim == 5:                      # DHWIO -> OIDHW
-            return f"{key}.weight", a.transpose(4, 3, 0, 1, 2)
-        raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
+        if a.ndim not in (4, 5):
+            raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
+        return f"{key}.weight", param_from_flax(f"{key}.weight", a)
     if leaf == "scale":
         return f"{key}.weight", a
     if leaf == "bias":
@@ -83,6 +89,60 @@ def from_flax(params: Mapping, batch_stats: Mapping
         key = f"{module.replace('/', '.')}.{_BN_STATS[leaf]}"
         sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return sd
+
+
+def param_to_flax(key: str, a: np.ndarray) -> np.ndarray:
+    """A port parameter (state_dict key, array) in the JAX layout."""
+    if key.endswith(".weight"):
+        if a.ndim == 4:                      # OIHW -> HWIO
+            return a.transpose(2, 3, 1, 0)
+        if a.ndim == 5:                      # OIDHW -> DHWIO
+            return a.transpose(2, 3, 4, 1, 0)
+    return a
+
+
+def param_from_flax(key: str, a: np.ndarray) -> np.ndarray:
+    """Inverse of `param_to_flax`."""
+    if key.endswith(".weight"):
+        if a.ndim == 4:                      # HWIO -> OIHW (also BilinearUp)
+            return a.transpose(3, 2, 0, 1)
+        if a.ndim == 5:                      # DHWIO -> OIDHW
+            return a.transpose(4, 3, 0, 1, 2)
+    return a
+
+
+def flax_param_path(key: str, ndim: int) -> str:
+    """The flax parameter path of a port parameter of rank `ndim` (a 1-D
+    `weight` is a BatchNorm scale, any other a kernel)."""
+    module, _, leaf = key.rpartition(".")
+    if leaf == "weight":
+        leaf = "scale" if ndim == 1 else "kernel"
+    elif leaf not in ("kernel", "bias"):
+        raise ValueError(f"unknown parameter {key}")
+    return f"{module.replace('.', '/')}/{leaf}"
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor]):
+    """Port state_dict -> (params, batch_stats) trees of numpy arrays in the
+    JAX layouts, the inverse of `from_flax`."""
+    params, stats = {}, {}
+    for key, t in state_dict.items():
+        a = t.detach().cpu().float().numpy()
+        module, _, leaf = key.rpartition(".")
+        if leaf in ("running_mean", "running_var"):
+            stats[f"{module.replace('.', '/')}/{leaf[len('running_'):]}"] = a
+        else:
+            params[flax_param_path(key, a.ndim)] = np.ascontiguousarray(
+                param_to_flax(key, a))
+    return _unflatten(params), _unflatten(stats)
+
+
+def jax_param_order(model: nn.Module, uncert: bool):
+    """The model's parameter names (plus "loss_weight" under --uncert) in
+    the JAX package's optimizer-leaf order."""
+    names = sorted(((tuple(flax_param_path(k, p.dim()).split("/")), k)
+                    for k, p in model.named_parameters()))
+    return (["loss_weight"] if uncert else []) + [k for _, k in names]
 
 
 def read_npz(path: str) -> Dict[str, Any]:

@@ -125,7 +125,7 @@ def test_folded_bn_bf16_single_rounding():
     want = np.asarray(jdla.FoldedBatchNorm(
         use_running_average=True, dtype=jnp.bfloat16).apply(
             {"params": params, "batch_stats": stats}, xb).astype(jnp.float32))
-    bn = tdla.FoldedBatchNorm(C)
+    bn = tdla.FoldedBatchNorm(C).eval()    # running statistics, as the JAX side
     bn.load_state_dict({"weight": torch.from_numpy(params["scale"]),
                         "bias": torch.from_numpy(params["bias"]),
                         "running_mean": torch.from_numpy(stats["mean"]),

@@ -4,9 +4,12 @@ machine that has the card but no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances of the kernel against its plain version, relative to the output's
-max: 1e-5 in f32 (sum order) and 8e-3 in bf16 (sum order and the output's
-rounding), as csrc/dcn_fwd.cu states.
+Tolerances of the kernels against their plain version, relative to each
+result's max: forward 1e-5 in f32 (sum order) and 8e-3 in bf16 (sum order
+and the output's rounding), as csrc/dcn_fwd.cu states; backward (K2, K3
+against autograd of the plain version) 1e-4 in f32 (sum order, atomics)
+and 2e-2 in bf16 (the plain version rounds the column gradient and d_x to
+bf16), as csrc/dcn_bwd.cu states.
 """
 
 import numpy as np
@@ -15,11 +18,12 @@ import torch
 
 from side_tpu_torch.config import Config
 from side_tpu_torch.ops import deform_conv as tdc
-from side_tpu_torch.ops.dcn_cuda import DCN_FWD
+from side_tpu_torch.ops.dcn_cuda import DCN_BWD_DCOORD, DCN_BWD_DX, DCN_FWD
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -66,8 +70,14 @@ def test_dispatch_on_card_launches_the_kernel(card):
     want = tdc.deform_conv_plain(x, off, mask, w, None, tdc.dcn_radius_tag())
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) <= TOL[torch.float32]
-    with pytest.raises(RuntimeError, match="inference-only"):
-        tdc.deform_conv2d(x, off, mask, w.requires_grad_(True), b)
+    # with a gradient asked for, the forward is the same kernel, and the
+    # backward launches K2 and K3 once each
+    n_dx, n_dc = DCN_BWD_DX.launches, DCN_BWD_DCOORD.launches
+    out = tdc.deform_conv2d(x, off, mask, w.requires_grad_(True), b)
+    assert DCN_FWD.launches == before + 2
+    out.sum().backward()
+    assert (DCN_BWD_DX.launches, DCN_BWD_DCOORD.launches) == (n_dx, n_dc + 1)
+    assert w.grad is not None and bool(torch.isfinite(w.grad).all())
 
 
 @pytest.mark.parametrize("fault", ["f64_x", "f16_x", "bf16_offset",
@@ -114,3 +124,102 @@ def test_detector_run_on_card(card):
     assert tuple(rows.shape) == (cfg.K, 13)
     assert bool(torch.isfinite(rows).all())
     assert out["tot"] > 0
+
+
+def _grads(fn, x, off, mask, w, b, g):
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, off, mask, w, b)]
+    fn(*leaves).backward(g)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("radius", [1, 2, -1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_kernels_match_plain_autograd_on_card(card, dtype, radius):
+    """K2 (d_x) and K3 (d_offset, d_mask, d_weight) through DcnFunction
+    against autograd of the plain version, odd sizes, offsets beyond +-R."""
+    x, off, mask, w, b = _case(card, seed=3)
+    x = x.to(dtype)
+    g = torch.randn(x.shape[:3] + (w.shape[-1],), device=card,
+                    generator=torch.Generator(card).manual_seed(4)).to(dtype)
+    mode = ("exact", None) if radius < 0 else ("windowed", radius)
+    with tdc.dcn_mode(*mode):
+        got = _grads(tdc.deform_conv2d, x, off, mask, w, b, g)
+    want = _grads(lambda *a: tdc.deform_conv_plain(*a, radius),
+                  x, off, mask, w, b, g)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for name, a, ref in zip(("x", "offset", "mask", "weight", "bias"),
+                            got, want):
+        err = float((a.float() - ref.float()).abs().max() /
+                    ref.float().abs().max())
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+def test_nan_offset_gets_zero_offset_gradient(card):
+    x, off, mask, w, b = _case(card, seed=5)
+    off[0, 3, 4, 2] = torch.tensor([float("nan"), 0.3])
+    off[1, 2, 7, 5] = float("nan")
+    g = torch.randn(x.shape[:3] + (w.shape[-1],), device=card)
+    d_x, d_off, d_mask, d_w, _ = _grads(tdc.deform_conv2d, x, off, mask, w,
+                                        b, g)
+    torch.cuda.synchronize()
+    assert float(d_off[0, 3, 4, 2, 0]) == 0.0
+    assert float(d_off[1, 2, 7, 5].abs().max()) == 0.0
+    assert float(d_off[0, 3, 4, 2, 1].abs()) > 0.0     # its dx is 0.3
+    for t in (d_x, d_off, d_mask, d_w):
+        assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.parametrize("fault", ["g_dtype", "g_shape", "strided_g",
+                                   "f16_x", "offset_on_cpu", "weight_f64"])
+def test_backward_wrappers_raise_on_what_they_cannot_take(card, fault):
+    x, off, mask, w, b = _case(card, seed=6)
+    g = torch.randn(x.shape[:3] + (w.shape[-1],), device=card)
+    if fault == "g_dtype":
+        g = g.bfloat16()
+    elif fault == "g_shape":
+        g = g[..., :-1].contiguous()
+    elif fault == "strided_g":
+        g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    elif fault == "f16_x":
+        x, g = x.half(), g.half()
+    elif fault == "offset_on_cpu":
+        off = off.cpu()
+    elif fault == "weight_f64":
+        w = w.double()
+    before = (DCN_BWD_DX.launches, DCN_BWD_DCOORD.launches)
+    with pytest.raises((TypeError, ValueError)):
+        DCN_BWD_DCOORD(x, g, off, mask, w, 1)
+    with pytest.raises((TypeError, ValueError)):
+        if fault == "g_dtype":
+            DCN_BWD_DX(g.half(), off, mask, w, 1)
+        else:
+            DCN_BWD_DX(g, off, mask, w, 1)
+    assert (DCN_BWD_DX.launches, DCN_BWD_DCOORD.launches) == before
+
+
+def test_train_step_on_card_launches_each_kernel_16_times(card):
+    """One Trainer step on the card at a small input: the forward kernel,
+    K2 and K3 launch once per DeformBlock (16), every loss part is finite
+    and the parameters move."""
+    from side_tpu_torch.data.synthetic import scene_batch
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    from side_tpu_torch.runtime.trainer import Trainer
+    cfg = Config(input_h=128, input_w=256, max_objs=8, uncert=True)
+    model = create_model(cfg, seed=0)
+    he_scale(model)
+    perturb_offsets(model, seed=1)
+    tr = Trainer(cfg, model, steps_per_epoch=4)
+    assert tr.device.type == "cuda"
+    batch = tr.to_device(scene_batch(cfg, np.random.RandomState(0), 2, 8))
+    before = {k: v.clone() for k, v in tr.params.items()}
+    counts = [k.launches for k in (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)]
+    stats = tr.train_step(batch)
+    torch.cuda.synchronize()
+    after = [k.launches for k in (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)]
+    assert [a - c for a, c in zip(after, counts)] == [16, 16, 16]
+    assert all(np.isfinite(float(v)) for v in stats.values())
+    moved = sum(not torch.equal(before[k], v) for k, v in tr.params.items())
+    assert moved >= len(before) - 6      # all but the unread projections

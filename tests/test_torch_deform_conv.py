@@ -120,8 +120,12 @@ def test_dispatch_follows_mode_and_rejects_gradients():
     np.testing.assert_array_equal(
         got.numpy(), tdc.deform_conv2d_exact(xt, ot, mt, wt, bt).numpy())
     assert tdc.get_dcn_mode() == "windowed" and tdc.dcn_radius_tag() == 1
-    with pytest.raises(RuntimeError, match="inference-only"):
-        tdc.deform_conv2d(xt, ot, mt, wt.requires_grad_(True), bt)
+    # gradients are no longer rejected: on CPU tensors they come from
+    # autograd through the plain version
+    tdc.deform_conv2d(xt, ot, mt, wt.requires_grad_(True), bt).sum().backward()
+    want = torch.tensor(w, requires_grad=True)
+    tdc.deform_conv_plain(xt, ot, mt, want, bt, 1).sum().backward()
+    np.testing.assert_array_equal(wt.grad.numpy(), want.grad.numpy())
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
