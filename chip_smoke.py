@@ -22,23 +22,23 @@ Phases, each of which must pass:
      autograd of the plain version on the card, every cotangent, at the 7
      DeformBlock shapes of a training step (B=8: 4 stereo pairs), bf16 and
      f32 with R=1, and R=-1 at one shape, offsets beyond +-R included;
-     times, plain times and bounds, and the forward kernel's at the same
-     shapes;
+     the forward kernel's output at the same shapes against the plain
+     version's (phase 2's tolerance); times, plain times and bounds;
   6. the training path: Trainer(Config()) at full width (384x1280, bf16,
      max_objs 50, roi_size 16) on He-scaled seeded weights with perturbed
      offsets, fed 4 rendered stereo pairs held in memory, takes 1 warm-up
      and 3 timed steps (Trainer.train_step); every loss part finite, the
      parameters and BatchNorm statistics move, and the forward kernel, K2
-     and K3 each launch 16 times per step; step time, its forward /
-     backward / optimizer split and the peak device memory;
+     and K3 each launch 16 times per step; step time, its upload /
+     forward / backward / optimizer split and the peak device memory;
   7. a small train-step check: one f32 step on the card and one on the CPU
-     from the same weights and batch (TF32 off, offsets inside the window),
-     in training and in eval-mode BatchNorm: losses to 1e-3; gradients,
-     each relative to its tensor's largest value, to 0.1 at most and 1e-2
-     in the median with running statistics, 0.5 and 0.1 with batch
-     statistics.  f32 sum order moves these gradients (ReLU and max-pool
-     kinks, amplified by batch statistics): the CPU's own noise floor under
-     a 1e-6 input change is printed beside them.
+     from the same weights and batch (TF32 off; the well-conditioned
+     random point of tests/test_torch_train.py, offsets inside the
+     window), in eval and in training-mode BatchNorm: losses to 1e-3;
+     gradients, each relative to its tensor's largest value, to 1e-3 with
+     running statistics, 0.4 at most and 3e-2 in the median with batch
+     statistics (SMALL_TRAIN_BOUNDS); the CPU's own noise floor under a
+     1e-6 input change, over three draws, is printed beside them.
 Prints a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits non-zero if any phase fails or no
 CUDA device is present.
@@ -299,8 +299,9 @@ def _bwd_bound_ms(cin, h, w, cout, dtype):
 
 
 def phase_backward_kernels() -> dict:
-    """K2 and K3 against autograd of the plain version at the training
-    shapes; per kernel and case the largest error over its cotangents."""
+    """The forward kernel against the plain version, and K2 and K3 against
+    its autograd, at the training shapes; per kernel and case the largest
+    error over its outputs."""
     from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
                                              DCN_FWD)
     from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
@@ -320,15 +321,18 @@ def phase_backward_kernels() -> dict:
                         device="cuda").to(dtype)
         leaves = [t.clone().requires_grad_(True)
                   for t in (x, off, mask, wt, bias)]
-        DcnFunction.apply(*leaves, radius).backward(g)
-        got = [t.grad for t in leaves]
+        out = DcnFunction.apply(*leaves, radius)
+        out.backward(g)
+        got = [out.detach()] + [t.grad for t in leaves[:4]]
         ref_in = [t.clone().requires_grad_(True)
                   for t in (x, off, mask, wt, bias)]
         ref_out = deform_conv_plain(*ref_in, radius)
-        want = torch.autograd.grad(ref_out, ref_in[:4], g, retain_graph=True)
+        want = [ref_out.detach()] + list(torch.autograd.grad(
+            ref_out, ref_in[:4], g, retain_graph=True))
         torch.cuda.synchronize()
         errs = {}
-        for name, a, b in zip(("x", "offset", "mask", "weight"), got, want):
+        for name, a, b in zip(("out", "x", "offset", "mask", "weight"),
+                              got, want):
             diff = (a.float() - b.float()).abs().max().item()
             errs[name] = (diff, diff / max(b.float().abs().max().item(),
                                            1e-30))
@@ -346,27 +350,23 @@ def phase_backward_kernels() -> dict:
         bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, TRAIN_BATCH)
         del ref_out
         for name, ms, plain_ms, parts in (
-                ("dcn_fwd", fwd_ms, fwd_plain, ()),
+                ("dcn_fwd", fwd_ms, fwd_plain, ("out",)),
                 ("dcn_bwd_dx", k2_ms, k2_plain, ("x",)),
                 ("dcn_bwd_dcoord", k3_ms, k3_plain,
                  ("offset", "mask", "weight"))):
             row = {"kernel": name, "cin": cin, "h": h, "w": w, "cout": cout,
                    "dtype": str(dtype).replace("torch.", ""),
                    "radius": radius, "per_step": n,
-                   "max_abs_err": max((errs[p][0] for p in parts),
-                                      default=None),
-                   "max_rel_err": max((errs[p][1] for p in parts),
-                                      default=None),
+                   "max_abs_err": max(errs[p][0] for p in parts),
+                   "max_rel_err": max(errs[p][1] for p in parts),
                    "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
             rows.append(row)
             log(f"[backward] {json.dumps(row)}")
-            if not parts:
-                continue        # the forward is checked in phase 2
+            tol = (TOLERANCE if name == "dcn_fwd" else BWD_TOLERANCE)[dtype]
             check(np.isfinite(row["max_rel_err"]) and
-                  row["max_rel_err"] <= BWD_TOLERANCE[dtype],
-                  f"{name} disagrees with autograd of the plain version: "
-                  f"{row} {errs}")
+                  row["max_rel_err"] <= tol,
+                  f"{name} disagrees with the plain version: {row} {errs}")
     return {"rows": rows}
 
 
@@ -377,25 +377,15 @@ def _batch_stats(model):
 
 def phase_training(steps: int = 3) -> dict:
     """The training path at full width: 1 warm-up + `steps` timed steps of
-    Trainer.train_step; then one more step split into forward, backward and
-    optimizer between fences (not part of the counted run)."""
-    from side_tpu_torch.config import Config
-    from side_tpu_torch.data.synthetic import scene_batch
-    from side_tpu_torch.models.factory import create_model
+    Trainer.train_step; then one more step split into upload, forward,
+    backward and optimizer between fences (not part of the counted run)."""
     from side_tpu_torch.ops.dcn_cuda import KERNELS
-    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
-    from side_tpu_torch.runtime.trainer import Trainer
-    cfg = Config(batch_size=4)
-    rng = np.random.RandomState(20)
+    from side_tpu_torch.stage_profile import flagship_trainer, step_stages
     t0 = time.perf_counter()
-    batches = [scene_batch(cfg, rng, cfg.batch_size, cfg.max_objs)
-               for _ in range(steps + 2)]
-    log(f"[train] {len(batches)} batches of {cfg.batch_size} rendered "
-        f"pairs in {time.perf_counter() - t0:.2f} s (host, set-up)")
-    model = create_model(cfg, seed=21)
-    he_scale(model)
-    perturb_offsets(model, seed=22)
-    tr = Trainer(cfg, model, steps_per_epoch=100)      # cuda by default
+    tr, batches = flagship_trainer(steps + 2)          # cuda by default
+    cfg, model = tr.cfg, tr.model
+    log(f"[train] Trainer and {len(batches)} batches of {cfg.batch_size} "
+        f"rendered pairs in {time.perf_counter() - t0:.2f} s (set-up)")
     params0 = {k: v.detach().clone() for k, v in tr.params.items()}
     stats0 = _batch_stats(model)
     torch.cuda.reset_peak_memory_stats()
@@ -429,25 +419,7 @@ def phase_training(steps: int = 3) -> dict:
     bs_moved = sum(not torch.equal(stats0[k], v) for k, v in stats1.items())
     check(bs_moved == len(stats0), f"only {bs_moved} of {len(stats0)} "
           "BatchNorm statistics changed")
-    # the split, on one more batch, between fences
-    split = {}
-    batch = tr.to_device(batches[-1])
-    tr.model.train()
-    for p in tr.params.values():
-        p.grad = None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    total, _ = tr.loss(batch)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    total.backward()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    tr.optimizer.step()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    split = {"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
-             "optimizer_ms": (t3 - t2) * 1e3}
+    split = step_stages(tr, batches[-1])    # one more batch, between fences
     timed = step_ms[1:]
     out = {"step_ms": timed, "step_ms_median": statistics.median(timed),
            "warmup_ms": step_ms[0], "split": split,
@@ -458,85 +430,109 @@ def phase_training(steps: int = 3) -> dict:
     return out
 
 
-def _interior_offsets(model, seed):
-    """Offset/mask convs with a tiny kernel and dy/dx biases in (0.3, 0.7):
-    every DCN samples inside the window, away from the kinks of the
-    bilinear derivative (tests/test_torch_train.py)."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, mod in model.named_modules():
-            if name.endswith("offset_mask"):
-                mod.weight.mul_(0.0).add_(torch.randn(
-                    mod.weight.shape, generator=gen) * 1e-3)
-                b = torch.randn(27, generator=gen) * 0.5
-                b[0::3] = torch.rand(9, generator=gen) * 0.4 + 0.3
-                b[1::3] = torch.rand(9, generator=gen) * 0.4 + 0.3
-                mod.bias.copy_(b)
+# the small card-vs-CPU train step: bounds on (loss parts, relative; each
+# gradient's error over its tensor's largest value, worst and median over
+# tensors).  The weights are drawn as in tests/test_torch_train.py, where
+# eval-mode BatchNorm is well conditioned: every gradient to 1e-3, as
+# there (on an H100 machine card vs CPU gave 1.4e-4; the printed CPU floor
+# under a 1e-6 input change, a larger move than sum order, 1.2e-3).
+# Batch statistics over few samples per channel amplify f32 sum-order
+# noise: that floor, over NOISE_SEEDS, is 0.196 worst and 1.2e-2 median
+# there, so train mode is held to twice that worst and to the test's 3e-2
+# median.  The DCN kernels' backward runs in both modes.
+SMALL_TRAIN_BOUNDS = {"eval": (1e-3, 1e-3, 1e-3),
+                      "train": (1e-3, 0.4, 3e-2)}
+NOISE_SEEDS = (33, 34, 35)
+
+
+def _small_train_step(cfg, base, batch, dev, mode, noise=None):
+    """Loss parts and gradients of one f32 train step of a copy of `base`
+    on `dev`, its normalised input moved by `noise` if given."""
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.trainer import Trainer, normalize_images
+    model = create_model(cfg, seed=0)
+    model.load_state_dict(base.state_dict())
+    tr = Trainer(cfg, model, steps_per_epoch=10, device=dev)
+    model.train(mode == "train")
+    b = tr.to_device(batch)
+    if noise is not None:
+        b["input"] = normalize_images(b, tr.mean, tr.std)["input"] + \
+            noise.to(tr.device)
+    total, stats = tr.loss(b)
+    total.backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().cpu() for k, p in tr.params.items()}
+    return {k: v.item() for k, v in stats.items()}, grads
+
+
+def _step_errors(want, got) -> dict:
+    """Largest relative loss-part error; per gradient tensor max |diff|
+    over max |want| (floored at 1e-4 of the largest gradient: a bias that
+    feeds a batch-statistics BatchNorm has a gradient of 0 up to float
+    residue), worst and median over tensors."""
+    (want_s, want_g), (got_s, got_g) = want, got
+    loss_err = max(abs(got_s[k] - v) / max(abs(v), 1e-3)
+                   for k, v in want_s.items())
+    top = max(float(g.abs().max()) for g in want_g.values())
+    errs = [float((got_g[k] - g).abs().max()) /
+            max(float(g.abs().max()), 1e-4 * top)
+            for k, g in want_g.items()]
+    return {"loss_rel_err": loss_err, "grad_err_max": max(errs),
+            "grad_err_median": statistics.median(errs)}
+
+
+def small_train_setup():
+    """Config, seeded well-conditioned weights (interior_init) and one
+    rendered batch of 2 pairs at 128x256, f32, --uncert."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.data.synthetic import scene_batch
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.synthetic import interior_init
+    cfg = Config(input_h=128, input_w=256, compute_dtype="float32",
+                 max_objs=8, roi_size=8, uncert=True)
+    batch = scene_batch(cfg, np.random.RandomState(30), 2, cfg.max_objs)
+    base = create_model(cfg, seed=31)
+    interior_init(base, seed=32)
+    return cfg, base, batch
+
+
+def cpu_noise_floor(cfg, base, batch, mode, cpu=None) -> dict:
+    """The CPU step against itself with the normalised input moved by
+    normal noise of standard deviation 1e-6, one draw per seed of
+    NOISE_SEEDS: the worst of each error over the draws."""
+    cpu = cpu or _small_train_step(cfg, base, batch, "cpu", mode)
+    runs = [_step_errors(cpu, _small_train_step(
+        cfg, base, batch, "cpu", mode, torch.randn(
+            batch["input"].shape,
+            generator=torch.Generator().manual_seed(s)) * 1e-6))
+        for s in NOISE_SEEDS]
+    return {k: max(r[k] for r in runs) for k in runs[0]}
 
 
 def phase_small_train_reference() -> dict:
     """One f32 train step on the card against the same on the CPU (the
     plain DCN with autograd): the kernel path against the plain path end to
-    end, with --uncert.  The gradients of this deep random network move with
-    the order of f32 sums (ReLU and max-pool kinks, and with batch
-    statistics their amplification; tests/test_torch_train.py): the CPU
-    run is repeated with the input moved by 1e-6 to print that noise floor
-    beside the card-vs-CPU difference, and the bounds sit above both."""
-    from side_tpu_torch.config import Config
-    from side_tpu_torch.data.synthetic import scene_batch
-    from side_tpu_torch.models.factory import create_model
-    from side_tpu_torch.runtime.synthetic import he_scale
-    from side_tpu_torch.runtime.trainer import Trainer, normalize_images
+    end, with --uncert, at the well-conditioned random point of
+    tests/test_torch_train.py (offsets inside the window, off the kinks of
+    the bilinear derivative) and to its bounds.  The CPU's own noise floor
+    under a 1e-6 input change is printed beside the card-vs-CPU errors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(input_h=128, input_w=256, compute_dtype="float32",
-                 max_objs=8, roi_size=8, uncert=True)
-    batch = scene_batch(cfg, np.random.RandomState(30), 2, cfg.max_objs)
-    base = create_model(cfg, seed=31)
-    he_scale(base)
-    _interior_offsets(base, seed=32)
-    noise = torch.randn(batch["input"].shape,
-                        generator=torch.Generator().manual_seed(33)) * 1e-6
-
-    def step(dev, mode, eps):
-        model = create_model(cfg, seed=31)
-        model.load_state_dict(base.state_dict())
-        tr = Trainer(cfg, model, steps_per_epoch=10, device=dev)
-        model.train(mode == "train")
-        b = tr.to_device(batch)
-        if eps:
-            b["input"] = normalize_images(b, tr.mean, tr.std)["input"] + \
-                noise.to(tr.device)
-        total, stats = tr.loss(b)
-        total.backward()
-        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
-                 .detach().cpu() for k, p in tr.params.items()}
-        return {k: v.item() for k, v in stats.items()}, grads
-
-    def compare(a, b):
-        (want_s, want_g), (got_s, got_g) = a, b
-        loss_err = max(abs(got_s[k] - v) / max(abs(v), 1e-3)
-                       for k, v in want_s.items())
-        top = max(float(g.abs().max()) for g in want_g.values())
-        errs = [float((got_g[k] - g).abs().max()) /
-                max(float(g.abs().max()), 1e-4 * top)
-                for k, g in want_g.items()]
-        return {"loss_rel_err": loss_err, "grad_err_max": max(errs),
-                "grad_err_median": statistics.median(errs)}
-
+    cfg, base, batch = small_train_setup()
     out = {}
-    bounds = {"train": (0.5, 0.1), "eval": (0.1, 1e-2)}
     for mode in ("train", "eval"):
-        cpu = step("cpu", mode, False)
-        out[mode] = compare(cpu, step("cuda", mode, False))
-        out[mode]["cpu_noise_floor"] = compare(cpu, step("cpu", mode, True))
+        cpu = _small_train_step(cfg, base, batch, "cpu", mode)
+        out[mode] = _step_errors(cpu, _small_train_step(
+            cfg, base, batch, "cuda", mode))
+        out[mode]["cpu_noise_floor"] = cpu_noise_floor(cfg, base, batch,
+                                                       mode, cpu)
         log(f"[small-train] {mode}-mode BatchNorm, card vs CPU: "
             f"{json.dumps(out[mode])}")
-        grad_max, grad_median = bounds[mode]
-        check(out[mode]["loss_rel_err"] <= 1e-3 and
-              out[mode]["grad_err_max"] <= grad_max and
-              out[mode]["grad_err_median"] <= grad_median,
-              f"{mode}: card and CPU train steps disagree: {out[mode]}")
+        bounds = dict(zip(("loss_rel_err", "grad_err_max",
+                           "grad_err_median"), SMALL_TRAIN_BOUNDS[mode]))
+        check(all(out[mode][k] <= b for k, b in bounds.items()),
+              f"{mode}: card and CPU train steps disagree: {out[mode]} "
+              f"(bounds {bounds})")
     return out
 
 
@@ -569,6 +565,8 @@ def main() -> int:
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
+    fwd_rows = kern["rows"] + [r for r in bwd["rows"]
+                               if r["kernel"] == "dcn_fwd"]
     fwd_step = [r for r in bwd["rows"] if r["kernel"] == "dcn_fwd"
                 and r["dtype"] == "bfloat16" and r["radius"] == 1]
     root = FWD_LIB.source.parents[2]
@@ -582,10 +580,10 @@ def main() -> int:
         "launches": main_path["launches"],
         "launches_path": "serving, 3 frames",
         "launches_training": train["launches"]["dcn_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
-        "max_rel_err_bf16": max(r["max_rel_err"] for r in kern["rows"]
+        "max_abs_err": max(r["max_abs_err"] for r in fwd_rows),
+        "max_rel_err_bf16": max(r["max_rel_err"] for r in fwd_rows
                                 if r["dtype"] == "bfloat16"),
-        "max_rel_err_f32": max(r["max_rel_err"] for r in kern["rows"]
+        "max_rel_err_f32": max(r["max_rel_err"] for r in fwd_rows
                                if r["dtype"] == "float32"),
         "ms": _per_unit(bf16, "ms", "per_frame"),
         "plain_ms": _per_unit(bf16, "plain_ms", "per_frame"),
@@ -597,9 +595,12 @@ def main() -> int:
         "training_step": {
             key: _per_unit(fwd_step, key, "per_step")
             for key in ("ms", "plain_ms", "bound_ms")},
-        "checked_shapes": len({(r["cin"], r["h"], r["w"], r["cout"])
-                               for r in kern["rows"]}),
-        "per_shape": kern["rows"],
+        "checked_shapes": {
+            path: len({(r["cin"], r["h"], r["w"], r["cout"]) for r in rows})
+            for path, rows in (
+                ("serving, B=2", kern["rows"]),
+                ("training, B=8", fwd_rows[len(kern["rows"]):]))},
+        "per_shape": fwd_rows,
     }]
     for name, replaces in (("dcn_bwd_dx",
                             "side_tpu/ops/dcn_pallas_bwd.py:104"),

@@ -202,8 +202,7 @@ def scene_annotations(objs: List[dict], p2: np.ndarray,
 
 
 def scene_batch(cfg: Config, rng: np.random.RandomState, batch_size: int,
-                max_objs: int, train: bool = True
-                ) -> Dict[str, np.ndarray]:
+                max_objs: int) -> Dict[str, np.ndarray]:
     """A collated training batch of `batch_size` rendered scenes, built by
     the same target and pre-process code as StereoKitti (`make_sample`),
     without image files: for machines without OpenCV, and for runs that
@@ -223,7 +222,7 @@ def scene_batch(cfg: Config, rng: np.random.RandomState, batch_size: int,
         img_l = _render(objs, p2, np.random.RandomState(tex_seed))
         img_r = _render(objs, p3, np.random.RandomState(tex_seed))
         sample = make_sample(cfg, img_l, img_r, calib,
-                             scene_annotations(objs, p2, i), train, False,
+                             scene_annotations(objs, p2, i), True, False,
                              aug_rng, data_rng, spec)
         sample.pop("meta")
         samples.append(sample)

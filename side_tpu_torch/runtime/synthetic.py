@@ -48,6 +48,56 @@ def he_scale(model: torch.nn.Module) -> None:
                 mod.kernel.mul_(gain)
 
 
+def interior_init(model: torch.nn.Module, seed: int) -> None:
+    """Seeded random weights at which an f32 train step is well conditioned
+    (the distributions of the port's train-step parity test): kernels
+    N(0, 1/fan_in), BilinearUp kernels 0.25 + N(0, 0.01), BatchNorm scale
+    U(0.6, 1.4), running mean N(0, 0.04) and variance U(0.5, 1.5), biases
+    N(0, 0.01); offset/mask convs get kernels N(0, 9e-4/fan_in), mask-logit
+    biases N(0, 0.25) and dy/dx biases U(0.3, 0.7), so that every DCN
+    samples inside its window and away from the integer kinks of the
+    bilinear derivative."""
+    from ..models.dla import (BilinearUp, Conv2d, Conv3d, DeformBlock,
+                              FoldedBatchNorm)
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(shape, std):
+        return torch.randn(shape, generator=gen) * std
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            new = {}
+            if name.endswith("offset_mask"):
+                fan_in = mod.weight[0].numel()
+                bias = randn(27, 0.5)
+                bias[0::3] = uniform(9, 0.3, 0.7)
+                bias[1::3] = uniform(9, 0.3, 0.7)
+                new = {"weight": randn(mod.weight.shape, 0.03 / fan_in ** 0.5),
+                       "bias": bias}
+            elif isinstance(mod, FoldedBatchNorm):
+                new = {"weight": uniform(mod.weight.shape, 0.6, 1.4),
+                       "bias": randn(mod.bias.shape, 0.1),
+                       "running_mean": randn(mod.running_mean.shape, 0.2),
+                       "running_var": uniform(mod.running_var.shape, 0.5,
+                                              1.5)}
+            elif isinstance(mod, BilinearUp):
+                new = {"weight": 0.25 + randn(mod.weight.shape, 0.1)}
+            elif isinstance(mod, DeformBlock):
+                fan_in = mod.kernel[..., 0].numel()
+                new = {"kernel": randn(mod.kernel.shape, fan_in ** -0.5),
+                       "bias": randn(mod.bias.shape, 0.1)}
+            elif isinstance(mod, (Conv2d, Conv3d)):
+                new = {"weight": randn(mod.weight.shape,
+                                       mod.weight[0].numel() ** -0.5)}
+                if mod.bias is not None:
+                    new["bias"] = randn(mod.bias.shape, 0.1)
+            for key, value in new.items():
+                getattr(mod, key).copy_(value)
+
+
 def perturb_offsets(model: torch.nn.Module, seed: int) -> None:
     """Give every offset/mask conv small seeded random weights, so that the
     DCNs sample at fractional and clamped offsets (their init is zero)."""

@@ -151,7 +151,10 @@ def step_stages(tr, batch) -> dict:
             "optimizer": t_opt}
 
 
-def train_profile(card: str, steps: int):
+def flagship_trainer(n_batches: int):
+    """The flagship Trainer on the card (Config(): 384x1280, bf16, max_objs
+    50, roi_size 16; batch 4 stereo pairs) on He-scaled seeded weights with
+    perturbed offsets, and `n_batches` host batches of rendered scenes."""
     from .data.synthetic import scene_batch
     from .models.factory import create_model
     from .runtime.trainer import Trainer
@@ -162,7 +165,12 @@ def train_profile(card: str, steps: int):
     tr = Trainer(cfg, model, steps_per_epoch=100)
     rng = np.random.RandomState(20)
     batches = [scene_batch(cfg, rng, cfg.batch_size, cfg.max_objs)
-               for _ in range(steps + 3)]
+               for _ in range(n_batches)]
+    return tr, batches
+
+
+def train_profile(card: str, steps: int):
+    tr, batches = flagship_trainer(steps + 3)
     for b in batches[:2]:
         tr.train_step(tr.to_device(b))
     torch.cuda.reset_peak_memory_stats()

@@ -237,6 +237,41 @@ def test_train_step_batch_stats_match(steps):
         assert rel_err(got[k], v) <= 1e-4, k
 
 
+def test_interior_init_draws_this_point():
+    """side_tpu_torch.runtime.synthetic.interior_init, the point of the
+    card-vs-CPU train step in chip_smoke.py, rewrites every parameter and
+    BatchNorm statistic with this module's distributions (torch_parity
+    `_fill` plus `_window_interior_offsets`): kernel std within 10 % of
+    1/sqrt(fan_in) where a tensor has >= 4096 entries, statistics and dy/dx
+    biases in their ranges."""
+    from side_tpu_torch.runtime.synthetic import interior_init
+    cfg = Config(**KW)
+    fresh = create_model(cfg, seed=0).state_dict()
+    model = create_model(cfg, seed=0)
+    interior_init(model, seed=1)
+    sd = model.state_dict()
+    assert all(not torch.equal(sd[k], v) for k, v in fresh.items()
+               if v.numel() > 1), "a tensor kept its initial value"
+    n_kernels = 0
+    for key, v in sd.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if "offset_mask" in key:
+            if leaf == "bias":
+                for part in (v[0::3], v[1::3]):
+                    assert ((part > 0.3) & (part < 0.7)).all(), key
+            else:
+                assert v.abs().max() <= 0.2 / v[0].numel() ** 0.5, key
+        elif leaf == "running_var":
+            assert ((v >= 0.5) & (v <= 1.5)).all(), key
+        elif leaf in ("weight", "kernel") and v.dim() >= 4 and \
+                v.numel() >= 4096 and "up_" not in key:
+            fan_in = (v[..., 0].numel() if leaf == "kernel"
+                      else v[0].numel())
+            assert abs(float(v.std()) * fan_in ** 0.5 - 1) <= 0.1, key
+            n_kernels += 1
+    assert n_kernels > 50
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_folded_bn_train_matches_flax(dtype):
     """FoldedBatchNorm in training mode against the JAX module: output,
