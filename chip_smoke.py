@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. toolchain: CUDA version, device, capability 9.0, power limit; build the
-     DCN kernels from side_tpu_torch/csrc (dcn_fwd.cu and dcn_bwd.cu, one
-     nvcc each, started together);
+  1. toolchain: CUDA version, device, capability 9.0, power limit; build
+     every kernel from side_tpu_torch/csrc (dcn_fwd.cu, dcn_bwd.cu,
+     dcn_fwd_om.cu and gather_bilinear.cu, one nvcc each, started together);
   2. the forward kernel against its plain PyTorch version on the card at the
      7 distinct DeformBlock shapes of the serving path (B=2), in bf16 and
      f32 with R=1, and R=-1 (exact) at one shape; times, bound, F.conv2d;
@@ -38,7 +38,28 @@ Phases, each of which must pass:
      gradients, each relative to its tensor's largest value, to 1e-3 with
      running statistics, 0.4 at most and 3e-2 in the median with batch
      statistics (SMALL_TRAIN_BOUNDS); the CPU's own noise floor under a
-     1e-6 input change, over three draws, is printed beside them.
+     1e-6 input change, over three draws, is printed beside them;
+  8. the fused forward kernel K4 (dcn_fwd_om) against its plain version and
+     against dcn_fwd fed the split operands, at the 7 DeformBlock shapes
+     with B=2 and B=8, bf16 and f32, offsets beyond +-1; the kernel's time,
+     the time of the fused route for the layer (the NHWC copy of the conv's
+     output + the kernel) and of the unfused route (split, sigmoid, casts,
+     dcn_fwd), plain times and bounds;
+  9. the gather kernel K5 (gather_bilinear) against its plain version at
+     the probe's shape (x (2, 96, 320, 64) bf16, 552,960 samples) and in
+     f32; time, bound, plain time and F.grid_sample's; then the probe's own
+     entry point (side_tpu_torch.tools.gather_microbench), which must launch
+     the kernel;
+ 10. the validation path: val.run_pass at full width over 10 rendered
+     scenes held in memory, eval_batch 4 (3 groups of 8 images through the
+     trunk, the last padded), fused switch on, pipelined: every group must
+     launch dcn_fwd_om 16 times and dcn_fwd never; result files for exactly
+     the 10 frames; the KITTI evaluator is built and run on them against
+     the written ground truth and its AP lines parsed.  Then the same
+     scenes frame by frame (eval_batch 1, unfused) and the rows of the two
+     runs compared (VAL_MATCH_RULE); ms per image for eval_batch 1 and 4,
+     fused and unfused; launches and device busy share of one group and of
+     one frame.
 Prints a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.  Exits non-zero if any phase fails or no
 CUDA device is present.
@@ -120,7 +141,7 @@ def power_line() -> str:
 
 
 def phase_toolchain() -> dict:
-    from side_tpu_torch.ops.dcn_cuda import LIBRARIES, build_all
+    from side_tpu_torch.ops.dcn_cuda import all_libraries, build_all
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     log(f"[toolchain] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -129,7 +150,7 @@ def phase_toolchain() -> dict:
     check(cap == (9, 0), f"needs a Hopper card (9.0), got {cap}")
     t0 = time.perf_counter()
     paths = build_all()
-    log(f"[toolchain] {', '.join(lib.source.name for lib in LIBRARIES)} "
+    log(f"[toolchain] {', '.join(lib.source.name for lib in all_libraries())} "
         f"built in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
         f"parallel) -> {', '.join(p.name for p in paths)}")
     return {"name": name, "capability": cap}
@@ -408,9 +429,10 @@ def phase_training(steps: int = 3) -> dict:
               f"step {i}: non-finite loss part {st}")
     n_steps = steps + 1
     for name, count in launches.items():
-        check(count == 16 * n_steps,
-              f"{name}: {count} launches in {n_steps} steps, expected "
-              f"{16 * n_steps}")
+        # the fused forward has no backward: training never takes it
+        want = 0 if name == "dcn_fwd_om" else 16 * n_steps
+        check(count == want, f"{name}: {count} launches in {n_steps} steps, "
+              f"expected {want}")
     moved = sum(not torch.equal(params0[k], v.detach())
                 for k, v in tr.params.items())
     check(moved >= len(params0) - 6, f"only {moved} of {len(params0)} "
@@ -536,6 +558,340 @@ def phase_small_train_reference() -> dict:
     return out
 
 
+def _om_inputs(cin, h, w, cout, dtype, gen, batch):
+    """x, the raw offset/mask conv output om (dy, dx ~ U(-1.5, 1.5), mask
+    logits ~ N(0, 1.5), in x's dtype), weight and bias."""
+    dev = "cuda"
+    x = torch.randn(batch, h, w, cin, generator=gen, device=dev).to(dtype)
+    om = torch.empty(batch, h, w, 9, 3, device=dev)
+    om[..., :2] = torch.rand(batch, h, w, 9, 2, generator=gen,
+                             device=dev) * 3.0 - 1.5
+    om[..., 2] = torch.randn(batch, h, w, 9, generator=gen, device=dev) * 1.5
+    wt = torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (
+        9 * cin) ** 0.5
+    bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, om.reshape(batch, h, w, 27).to(dtype), wt, bias
+
+
+def _om_bound_ms(cin, h, w, cout, dtype, batch):
+    """K1's operations; bytes with om at 27 values of x's dtype a pixel."""
+    pix = batch * h * w
+    flops = pix * 9 * cin * (2 * cout + 8)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (pix * cin * item + pix * 27 * item + 9 * cin * cout * 4
+              + cout * 4 + pix * cout * item)
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _unfused_route(x, om, wt, bias, radius):
+    """What `deform_block_om` does after the conv with the switch off; `om`
+    as the conv leaves it, an NHWC view of an NCHW tensor."""
+    from side_tpu_torch.ops.dcn_cuda import DCN_FWD
+    om5 = om.reshape(*om.shape[:3], 9, 3)
+    offset = om5[..., 0:2].float().contiguous()
+    mask = torch.sigmoid(om5[..., 2].float()).contiguous()
+    return DCN_FWD(x, offset, mask, wt, bias, radius)
+
+
+def phase_fused_kernel() -> dict:
+    from side_tpu_torch.ops.dcn_cuda import DCN_FWD_OM
+    from side_tpu_torch.ops.deform_conv import deform_conv_om_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(40)
+    rows = []
+    with torch.inference_mode():
+        for batch in (2, 8):
+            for (cin, h, w, cout), n in SERVING_SHAPES:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, om, wt, bias = _om_inputs(cin, h, w, cout, dtype, gen,
+                                                 batch)
+                    got = DCN_FWD_OM(x, om, wt, bias, 1)
+                    ref = deform_conv_om_plain(x, om, wt, bias, 1)
+                    # as the model's conv leaves it: NCHW memory, NHWC view
+                    om_view = om.permute(0, 3, 1, 2).contiguous().permute(
+                        0, 2, 3, 1)
+                    split = _unfused_route(x, om_view, wt, bias, 1)
+                    torch.cuda.synchronize()
+                    scale = max(ref.float().abs().max().item(), 1e-30)
+                    diff = (got.float() - ref.float()).abs().max().item()
+                    diff_k1 = (got.float() - split.float()).abs().max().item()
+                    ms = time_ms(lambda: DCN_FWD_OM(x, om, wt, bias, 1))
+                    fused_ms = time_ms(lambda: DCN_FWD_OM(
+                        x, om_view.contiguous(), wt, bias, 1))
+                    unfused_ms = time_ms(lambda: _unfused_route(
+                        x, om_view, wt, bias, 1))
+                    plain_ms = time_ms(lambda: deform_conv_om_plain(
+                        x, om, wt, bias, 1), reps=5, warmup=1)
+                    bound, bound_by = _om_bound_ms(cin, h, w, cout, dtype,
+                                                   batch)
+                    row = {"kernel": "dcn_fwd_om", "batch": batch,
+                           "cin": cin, "h": h, "w": w, "cout": cout,
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "radius": 1, "per_group": n,
+                           "max_abs_err": diff, "max_rel_err": diff / scale,
+                           "max_rel_err_vs_dcn_fwd": diff_k1 / scale,
+                           "ms": ms, "fused_route_ms": fused_ms,
+                           "unfused_route_ms": unfused_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": bound_by}
+                    rows.append(row)
+                    log(f"[fused] {json.dumps(row)}")
+                    check(np.isfinite(diff) and
+                          row["max_rel_err"] <= TOLERANCE[dtype] and
+                          row["max_rel_err_vs_dcn_fwd"] <= TOLERANCE[dtype],
+                          f"dcn_fwd_om disagrees: {row}")
+    return {"rows": rows}
+
+
+def phase_gather_kernel() -> dict:
+    """K5 at the probe's shape, then the probe itself."""
+    from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
+                                                gather_bilinear_plain)
+    from side_tpu_torch.tools import gather_microbench as probe
+    rows = []
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, sy, sx = probe.make_inputs("cuda", dtype)
+            y0, x0, fy, fx = (t.contiguous() for t in probe.corners(sy, sx))
+            got = GATHER_BILINEAR(x, y0, x0, fy, fx)
+            ref = gather_bilinear_plain(x, y0, x0, fy, fx)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                ok = diff.max().item() <= 1e-6 * ref.abs().max().item()
+            else:
+                # one bf16 ulp of each value, plus the f32 noise of the sum
+                # (fused multiply-adds) where the four terms cancel
+                top = ref.float().abs().max().item()
+                ok = bool((diff <= ref.float().abs() * 2.0 ** -7
+                           + 1e-6 * top).all())
+            item = x.element_size()
+            nbytes = (got.numel() * item + x.numel() * item
+                      + y0.numel() * 16)
+            flops = got.numel() * 8
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[torch.float32]
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            row = {"kernel": "gather_bilinear",
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "x": list(x.shape), "samples": y0.numel(),
+                   "max_abs_err": diff.max().item(),
+                   "ms": time_ms(lambda: GATHER_BILINEAR(x, y0, x0, fy, fx)),
+                   "plain_ms": time_ms(lambda: gather_bilinear_plain(
+                       x, y0, x0, fy, fx)),
+                   "library_ms": time_ms(lambda: probe.grid_sample_call(
+                       x_nchw, sy, sx)),
+                   "bytes": nbytes,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            rows.append(row)
+            log(f"[gather] {json.dumps(row)}")
+            check(ok, f"gather_bilinear disagrees with its plain version: "
+                  f"{row}")
+    GATHER_BILINEAR.launches = 0
+    check(probe.main(["--reps", "5"]) == 0, "the gather probe failed")
+    launches = GATHER_BILINEAR.launches
+    check(launches > 0, "the gather probe never launched gather_bilinear")
+    log(f"[gather] probe entry point: {launches} launches of the kernel")
+    return {"rows": rows, "launches": launches}
+
+
+# How the rows of two validation runs over the same frames are compared
+# (eval_batch 4 fused against eval_batch 1 unfused, bf16, random weights).
+# cuDNN picks other algorithms at other batch sizes and the two DCN routes
+# sum in another order, so in bf16 the heads differ at the 1e-2 level and
+# the top-K order among near-equal scores changes.  So slots are not
+# compared by rank: a slot of one run is matched to the slot of the other
+# run of the same class whose left-box centre is nearest, if within
+# `centre_px` pixels.  At least `min_matched` of the K slots of every frame
+# must match, and over the matched pairs of all frames the median
+# differences of the score and of the box corners (pixels) must stay within
+# `score` and `box_px`.  The 3D columns go through the box solver and the
+# argmin of the alignment, which amplify those differences: their medians
+# are printed, not bounded.
+VAL_MATCH_RULE = {"centre_px": 6.0, "min_matched": 0.5, "score": 0.05,
+                  "box_px": 2.0}
+
+
+def _match_rows(a: np.ndarray, ca: np.ndarray, b: np.ndarray,
+                cb: np.ndarray):
+    """Index pairs (i, j): row i of `a` and its nearest row j of `b` of the
+    same class by box centre, within VAL_MATCH_RULE["centre_px"]."""
+    centre = lambda r: np.stack([(r[:, 1] + r[:, 3]) / 2,
+                                 (r[:, 2] + r[:, 4]) / 2], 1)
+    d = np.linalg.norm(centre(a)[:, None] - centre(b)[None], axis=2)
+    d[ca[:, None] != cb[None]] = np.inf
+    j = d.argmin(1)
+    ok = d[np.arange(len(a)), j] <= VAL_MATCH_RULE["centre_px"]
+    return np.flatnonzero(ok), j[ok]
+
+
+class _RecordingDetector:
+    """Forwards to a Detector; records each dispatch's kernel launches and
+    the raw rows of every frame (before the score filter)."""
+
+    def __init__(self, det, kernels):
+        self._det, self._kernels = det, kernels
+        self.group_launches, self.raw = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._det, name)
+
+    def _counted(self, fn, *a, **kw):
+        before = {k: v.launches for k, v in self._kernels.items()}
+        out = fn(*a, **kw)
+        self.group_launches.append(
+            {k: v.launches - before[k] for k, v in self._kernels.items()})
+        return out
+
+    def dispatch(self, pre, run_align=True):
+        out = self._counted(self._det.dispatch, pre, run_align=run_align)
+        self.raw.append(tuple(h[None] for h in out["handles"]))
+        return out
+
+    def dispatch_batch(self, pres, run_align=True):
+        out = self._counted(self._det.dispatch_batch, pres,
+                            run_align=run_align)
+        self.raw.append(out["handles"])
+        return out
+
+
+def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
+    import os
+    import tempfile
+    from side_tpu_torch import val
+    from side_tpu_torch.config import CLASS_NAMES, Config
+    from side_tpu_torch.data.synthetic import val_scenes
+    from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.postprocess.post_process import save_kitti_results
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.evaluator import run_eval
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    from side_tpu_torch.stage_profile import profile_call
+    cfg = Config()
+    det = Detector(cfg)         # cuda by default
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=1)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir = os.path.join(tmp, "label_2")
+        scenes = val_scenes(n_scenes, seed=50, label_dir=gt_dir)
+
+        def run(eb, fused, record=True):
+            rec = _RecordingDetector(det, KERNELS)
+            t0 = time.perf_counter()
+            with dc.dcn_fused(fused):
+                results, meters, steady = val.run_pass(
+                    cfg, scenes, rec if record else det, n=n_scenes,
+                    eval_batch=eb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n_scenes
+            return rec, results, steady, wall
+
+        # the counted run: every count set to 0 just before, read just after
+        for kern in KERNELS.values():
+            kern.launches = 0
+        rec4, results4, _, _ = run(eval_batch, True)
+        launches = {k: v.launches for k, v in KERNELS.items()}
+        n_groups = -(-n_scenes // eval_batch)
+        check(len(rec4.group_launches) == n_groups,
+              f"{len(rec4.group_launches)} groups, expected {n_groups}")
+        for i, g in enumerate(rec4.group_launches):
+            check(g["dcn_fwd_om"] == 16 and g["dcn_fwd"] == 0 and
+                  g["dcn_bwd_dx"] == 0 and g["dcn_bwd_dcoord"] == 0,
+                  f"group {i} launched {g}, expected 16 dcn_fwd_om only")
+        check(sorted(results4) == list(range(n_scenes)),
+              f"results for frames {sorted(results4)}")
+        res_dir = save_kitti_results(results4, tmp, CLASS_NAMES)
+        files = sorted(os.listdir(res_dir))
+        check(files == [f"{i:06d}.txt" for i in range(n_scenes)],
+              f"result files {files}")
+        rows4 = torch.cat([r[0] for r in rec4.raw])[:n_scenes]
+        cls4 = torch.cat([r[1] for r in rec4.raw])[:n_scenes]
+        check(tuple(rows4.shape) == (n_scenes, cfg.K, 13) and
+              bool(torch.isfinite(rows4).all()),
+              f"validation rows {tuple(rows4.shape)} not finite")
+        n_dets = sum(len(r) for per in results4.values()
+                     for r in per.values())
+        aps = run_eval(res_dir, gt_dir)
+        check(any(k.endswith("_detection") for k in aps) and
+              all(len(v) == 3 and all(np.isfinite(v)) for v in aps.values()),
+              f"the evaluator's AP lines did not parse: {aps} "
+              f"({n_dets} detections written)")
+        log(f"[val] eval_batch {eval_batch} fused: {n_groups} groups, "
+            f"launches {launches}, {n_dets} detections above peak_thresh in "
+            f"{len(files)} files, AP {json.dumps(aps)}")
+
+        # the same scenes frame by frame, unfused
+        rec1, results1, _, _ = run(1, False)
+        check(all(g["dcn_fwd"] == 16 and g["dcn_fwd_om"] == 0
+                  for g in rec1.group_launches) and
+              len(rec1.group_launches) == n_scenes,
+              f"eval_batch 1 unfused launched {rec1.group_launches}")
+        rows1 = torch.cat([r[0] for r in rec1.raw]).cpu().numpy()
+        cls1 = torch.cat([r[1] for r in rec1.raw]).cpu().numpy()
+        rows4, cls4 = rows4.cpu().numpy(), cls4.cpu().numpy()
+        fractions, diffs = [], []
+        for f in range(n_scenes):
+            i, j = _match_rows(rows4[f], cls4[f], rows1[f], cls1[f])
+            fractions.append(len(i) / cfg.K)
+            diffs.append(np.abs(rows4[f][i] - rows1[f][j]))
+        diffs = np.concatenate(diffs)
+        med = np.median(diffs, axis=0)
+        match = {"matched_fraction_min": min(fractions),
+                 "matched_fraction_mean": float(np.mean(fractions)),
+                 "pairs": len(diffs),
+                 "median_abs_diff": {
+                     "score": float(med[12]), "box_px": float(med[1:5].max()),
+                     "alpha": float(med[0]), "dim": float(med[5:8].max()),
+                     "xyz": float(med[8:11].max()), "ry": float(med[11])}}
+        log(f"[val] eval_batch {eval_batch} fused vs eval_batch 1 unfused "
+            f"(rule {json.dumps(VAL_MATCH_RULE)}): {json.dumps(match)}")
+        check(match["matched_fraction_min"] >= VAL_MATCH_RULE["min_matched"]
+              and match["median_abs_diff"]["score"] <= VAL_MATCH_RULE["score"]
+              and match["median_abs_diff"]["box_px"]
+              <= VAL_MATCH_RULE["box_px"],
+              f"the two validation runs disagree: {match}")
+
+        # times, warm: one more pass each
+        times = {}
+        for eb in (1, eval_batch):
+            for fused in (False, True):
+                _, _, steady, wall = run(eb, fused, record=False)
+                times[f"eval_batch_{eb}_{'fused' if fused else 'unfused'}"] \
+                    = {"steady_ms_per_image": steady,
+                       "wall_ms_per_image": wall}
+        log(f"[val] ms per image, pipelined, warm: {json.dumps(times)}")
+
+        # launches and busy share: one batched group and one frame
+        def one_group(eb):
+            pres = [det.load_and_pre(pair, calib)
+                    for _, pair, calib in scenes[:eb]]
+            if eb == 1:
+                return det.finish(det.dispatch(pres[0]))
+            return det.finish_batch(det.dispatch_batch(pres))
+
+        profiles = {}
+        with dc.dcn_fused(True):
+            for eb in (eval_batch, 1):
+                prof = profile_call(lambda: one_group(eb))
+                profiles[f"eval_batch_{eb}"] = {
+                    k: prof.get(k) for k in
+                    ("wall_ms", "kernel_launches", "device_busy_ms",
+                     "device_busy_share", "by_kind_ms", "device")}
+        log(f"[val] one group under torch.profiler (fused): "
+            f"{json.dumps(profiles)}")
+    out.update(launches=launches, groups=n_groups, aps=aps, match=match,
+               times=times, profiles=profiles, detections=n_dets)
+    return out
+
+
 def _per_unit(rows, key, count_key):
     return sum(r[key] * r[count_key] for r in rows)
 
@@ -553,7 +909,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
-    from side_tpu_torch.ops.dcn_cuda import BWD_LIB, FWD_LIB
+    from side_tpu_torch.ops.dcn_cuda import BWD_LIB, FWD_LIB, OM_LIB
+    from side_tpu_torch.ops.gather_cuda import GATHER_LIB
     t_start = time.perf_counter()
     dev = phase_toolchain()
     kern = phase_kernels()
@@ -562,6 +919,9 @@ def main() -> int:
     bwd = phase_backward_kernels()
     train = phase_training()
     small_train = phase_small_train_reference()
+    fused = phase_fused_kernel()
+    gather = phase_gather_kernel()
+    validation = phase_validation()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -628,7 +988,52 @@ def main() -> int:
             "unit": "one training step (16 launches, B=8, bf16)",
             "per_shape": rows,
         })
+    om_group = [r for r in fused["rows"] if r["dtype"] == "bfloat16"
+                and r["batch"] == 8]
+    entries.append({
+        "name": "dcn_fwd_om", "route": "cuda",
+        "source": str(OM_LIB.source.relative_to(root)),
+        "replaces": "side_tpu/ops/dcn_pallas.py:691",
+        "launches": validation["launches"]["dcn_fwd_om"],
+        "launches_path": f"validation, {validation['groups']} groups of 4 "
+                         "frames",
+        "max_abs_err": max(r["max_abs_err"] for r in fused["rows"]),
+        "max_rel_err_bf16": max(r["max_rel_err"] for r in fused["rows"]
+                                if r["dtype"] == "bfloat16"),
+        "max_rel_err_f32": max(r["max_rel_err"] for r in fused["rows"]
+                               if r["dtype"] == "float32"),
+        "ms": _per_unit(om_group, "ms", "per_group"),
+        "plain_ms": _per_unit(om_group, "plain_ms", "per_group"),
+        "bound_ms": _per_unit(om_group, "bound_ms", "per_group"),
+        "bound_by": _bound_by(om_group, "per_group"),
+        "library_ms": None,
+        "fused_route_ms": _per_unit(om_group, "fused_route_ms",
+                                    "per_group"),
+        "unfused_route_ms": _per_unit(om_group, "unfused_route_ms",
+                                      "per_group"),
+        "unit": "one validation group of 4 frames (16 launches, B=8, bf16)",
+        "per_shape": fused["rows"],
+    })
+    g_bf16 = next(r for r in gather["rows"] if r["dtype"] == "bfloat16")
+    entries.append({
+        "name": "gather_bilinear", "route": "cuda",
+        "source": str(GATHER_LIB.source.relative_to(root)),
+        "replaces": "tools/gather_microbench.py:111",
+        "launches": gather["launches"],
+        "launches_path": "python -m side_tpu_torch.tools.gather_microbench "
+                         "--reps 5",
+        "max_abs_err": max(r["max_abs_err"] for r in gather["rows"]),
+        "ms": g_bf16["ms"], "plain_ms": g_bf16["plain_ms"],
+        "bound_ms": g_bf16["bound_ms"], "bound_by": g_bf16["bound_by"],
+        "library_ms": g_bf16["library_ms"],
+        "library_call": "F.grid_sample(bilinear, border, align_corners=True)"
+                        " on an NCHW copy; equal for in-bounds positions",
+        "unit": "the probe's shape: x (2, 96, 320, 64) bf16, 552,960 samples",
+        "per_shape": gather["rows"],
+    })
     print(json.dumps({"kernels": entries}), flush=True)
+    log(f"[summary] validation {json.dumps(validation['times'])}; "
+        f"launches {json.dumps(validation['launches'])}")
     log(f"[summary] train step {train['step_ms_median']:.1f} ms median, "
         f"split {json.dumps(train['split'])}, peak "
         f"{train['peak_mem_gib']:.2f} GiB; small-train check "

@@ -1,5 +1,6 @@
 """Synthetic mini-KITTI scenes (copy of side_tpu/data/synthetic.py, plus
-`scene_batch`, which feeds the trainer rendered scenes held in memory).
+`scene_batch`, which feeds the trainer rendered scenes held in memory, and
+`val_scenes`, which feeds the validation pass the same way).
 
 The reference ships no fixtures (SURVEY.md §4); this generator renders a few
 stereo pairs of textured 3D boxes with a real pinhole stereo rig so the full
@@ -10,7 +11,7 @@ solver, and the C++ evaluator — can be exercised without the real dataset.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -208,9 +209,7 @@ def scene_batch(cfg: Config, rng: np.random.RandomState, batch_size: int,
     without image files: for machines without OpenCV, and for runs that
     must not touch the disk.  All randomness comes from `rng`."""
     p2, p3 = default_calib()
-    p0 = p2.copy()
-    p0[0, 3] = 0.0
-    calib = [p0.tolist(), p3.tolist(), p2.tolist(), p3.tolist()]
+    calib = scene_calib()
     spec = target_spec(cfg, max_objs)
     aug_rng = np.random.RandomState(rng.randint(2 ** 31))
     data_rng = np.random.RandomState(rng.randint(2 ** 31))
@@ -227,6 +226,42 @@ def scene_batch(cfg: Config, rng: np.random.RandomState, batch_size: int,
         sample.pop("meta")
         samples.append(sample)
     return collate(samples)
+
+
+def scene_calib() -> list:
+    """The COCO-JSON calibration [P0, P1, P2, P3] of `default_calib`."""
+    p2, p3 = default_calib()
+    p0 = p2.copy()
+    p0[0, 3] = 0.0
+    return [p0.tolist(), p3.tolist(), p2.tolist(), p3.tolist()]
+
+
+def val_scenes(n: int, seed: int = 0, label_dir: Optional[str] = None
+               ) -> List[tuple]:
+    """`n` rendered validation frames held in memory, as the validation pass
+    reads them: (image id, (left, right) uint8 arrays, calib).  With
+    `label_dir`, each scene's KITTI ground truth is written to
+    `label_dir/%06d.txt` (text only, no OpenCV).  Recipes cycle as in
+    `build_fixture`'s later scenes: easy, occluded and truncated."""
+    rng = np.random.RandomState(seed)
+    p2, p3 = default_calib()
+    calib = scene_calib()
+    if label_dir is not None:
+        os.makedirs(label_dir, exist_ok=True)
+    frames = []
+    for i in range(n):
+        recipe = ("occluded" if i % 3 == 2 else
+                  "truncated" if i % 4 == 3 else "easy")
+        objs = make_scene(rng, n_cars=rng.randint(1, 4), recipe=recipe,
+                          classes=("Car", "Van", "Truck"))
+        tex_seed = rng.randint(2 ** 31)
+        img_l = _render(objs, p2, np.random.RandomState(tex_seed))
+        img_r = _render(objs, p3, np.random.RandomState(tex_seed))
+        if label_dir is not None:
+            with open(os.path.join(label_dir, f"{i:06d}.txt"), "w") as fh:
+                fh.write(label_lines(objs, p2))
+        frames.append((i, (img_l, img_r), calib))
+    return frames
 
 
 def build_fixture(root: str, n_train: int = 4, n_val: int = 2,

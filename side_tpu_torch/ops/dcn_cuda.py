@@ -5,7 +5,11 @@
         and :402 `_dcn_kernel_packed`);
     csrc/dcn_bwd.cu  `dcn_bwd_dx` (K2, side_tpu/ops/dcn_pallas_bwd.py:104
         `_dx_kernel`) and `dcn_bwd_dcoord` (K3, :193 `_dcoord_kernel`): the
-        backward.
+        backward;
+    csrc/dcn_fwd_om.cu  `dcn_fwd_om` (K4, side_tpu/ops/dcn_pallas.py:691
+        `_dcn_kernel_packed_om`): the forward fed the raw 27-channel
+        offset/mask conv output.  It shares its body with `dcn_fwd` through
+        csrc/dcn_fwd_body.cuh.
 
 Each source is compiled with nvcc into a shared library with a plain C
 interface at first use, under `side_tpu_torch/_build/` (git-ignored), and
@@ -13,8 +17,9 @@ loaded with ctypes; `build_all()` compiles every source at once.  Nothing is
 imported or built when this module is imported.
 
 `DCN_FWD(x, offset, mask, weight, bias, radius)`,
-`DCN_BWD_DX(g, offset, mask, weight, radius)` and
-`DCN_BWD_DCOORD(x, g, offset, mask, weight, radius)` launch their kernel on
+`DCN_BWD_DX(g, offset, mask, weight, radius)`,
+`DCN_BWD_DCOORD(x, g, offset, mask, weight, radius)` and
+`DCN_FWD_OM(x, om, weight, bias, radius)` launch their kernel on
 PyTorch's current stream for CUDA tensors and raise on anything they cannot
 take; they never fall back to the plain version.  Each counts its launches
 in `.launches`.
@@ -29,7 +34,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,19 +58,24 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One csrc/*.cu source, built into `_build/lib<name>_<hash>.so` and
     loaded with ctypes; `signatures` gives each launch function's argtypes,
-    and `error_fn` names the function that turns an error code into text."""
+    `error_fn` names the function that turns an error code into text, and
+    `headers` the csrc/ files the source includes (the hash covers them, so
+    an edited header is never served by a stale library)."""
 
-    def __init__(self, name: str, signatures, error_fn: str):
+    def __init__(self, name: str, signatures, error_fn: str,
+                 headers: Sequence[str] = ()):
         self.name = name
         self.source = _PKG / "csrc" / f"{name}.cu"
+        self.headers = [_PKG / "csrc" / h for h in headers]
         self.signatures = signatures
         self.error_fn = error_fn
         self._lib = None
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() +
-                                " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(
+            b"".join(p.read_bytes() for p in [self.source, *self.headers]) +
+            " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
 
     def start_build(self):
@@ -115,18 +125,31 @@ class CudaLibrary:
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 FWD_LIB = CudaLibrary("dcn_fwd", {
-    "dcn_fwd_launch": [_VP] * 6 + [_CI] * 7 + [_VP]}, "dcn_error_string")
+    "dcn_fwd_launch": [_VP] * 6 + [_CI] * 7 + [_VP]}, "dcn_error_string",
+    headers=("dcn_fwd_body.cuh",))
 BWD_LIB = CudaLibrary("dcn_bwd", {
     "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 7 + [_VP],
     "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 7 + [_VP]},
     "dcn_bwd_error_string")
-LIBRARIES = (FWD_LIB, BWD_LIB)
+OM_LIB = CudaLibrary("dcn_fwd_om", {
+    "dcn_fwd_om_launch": [_VP] * 5 + [_CI] * 7 + [_VP]},
+    "dcn_om_error_string", headers=("dcn_fwd_body.cuh",))
+LIBRARIES = (FWD_LIB, BWD_LIB, OM_LIB)
 
 
-def build_all(libraries: Sequence[CudaLibrary] = LIBRARIES):
-    """Compile every source at once (one nvcc each); returns the paths."""
+def build_all(libraries: Optional[Sequence[CudaLibrary]] = None):
+    """Compile every source at once (one nvcc each); returns the paths.
+    By default every kernel of the package (`all_libraries`)."""
+    if libraries is None:
+        libraries = all_libraries()
     procs = [lib.start_build() for lib in libraries]
     return [lib.finish_build(p) for lib, p in zip(libraries, procs)]
+
+
+def all_libraries() -> Sequence[CudaLibrary]:
+    """The DCN libraries and the gather probe's."""
+    from .gather_cuda import GATHER_LIB
+    return (*LIBRARIES, GATHER_LIB)
 
 
 def _dtype_code(x: torch.Tensor) -> int:
@@ -226,17 +249,57 @@ class DcnBackwardDcoord:
         return d_off, d_mask, d_w
 
 
-def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None) -> None:
+class DcnForwardOmKernel:
+    """K4 (`dcn_fwd_om_launch`): the forward fed the raw offset/mask conv
+    output, with a launch counter."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, om: torch.Tensor,
+                 weight: torch.Tensor, bias: torch.Tensor,
+                 radius: int) -> torch.Tensor:
+        """x (B,H,W,C) bf16|f32; om (B,H,W,27) in x.dtype, per tap [dy, dx,
+        mask logit]; weight (3,3,C,Cout) f32; bias (Cout,) f32; all
+        contiguous on one CUDA device; radius >= 0 (windowed).  Returns
+        (B,H,W,Cout) in x.dtype."""
+        _check(x, None, None, weight, bias=bias, om=om)
+        if int(radius) < 0:
+            raise ValueError("dcn_fwd_om is the windowed function: radius "
+                             f">= 0, got {radius}")
+        B, H, W, C = x.shape
+        Cout = weight.shape[-1]
+        lib = OM_LIB.load()
+        out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+        err = lib.dcn_fwd_om_launch(
+            x.data_ptr(), om.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
+            _stream(x.device))
+        OM_LIB.check(err, "dcn_fwd_om")
+        self.launches += 1
+        return out
+
+
+def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None,
+           om=None) -> None:
     """Shapes, dtypes, device and contiguity of a DCN kernel's operands.  K2
-    reads no x: it passes g as `x` and x's shape as `x_shape`."""
+    reads no x: it passes g as `x` and x's shape as `x_shape`.  K4 passes
+    `om` (in x's dtype) in place of offset and mask."""
     shape = tuple(x.shape) if x_shape is None else tuple(x_shape)
     if len(shape) != 4:
         raise ValueError(f"x must be (B, H, W, C), got {shape}")
     B, H, W, C = shape
     Cout = weight.shape[-1] if weight.dim() == 4 else -1
-    want = {"offset": (B, H, W, 9, 2), "mask": (B, H, W, 9),
-            "weight": (3, 3, C, Cout)}
-    got = {"offset": offset, "mask": mask, "weight": weight}
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if om is None:
+        want = {"offset": (B, H, W, 9, 2), "mask": (B, H, W, 9)}
+        got = {"offset": offset, "mask": mask}
+    else:
+        want = {"om": (B, H, W, 27)}
+        got = {"om": om}
+    want["weight"] = (3, 3, C, Cout)
+    got["weight"] = weight
     if bias is not None:
         want["bias"] = (Cout,)
         got["bias"] = bias
@@ -244,10 +307,9 @@ def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None) -> None:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+        dtype = x.dtype if name == "om" else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     tensors = dict(x=x, **got)
     if g is not None:
         if tuple(g.shape) != (B, H, W, Cout):
@@ -262,7 +324,7 @@ def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None) -> None:
                              f"({x.device}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if (B * H * W * C >= 2 ** 31 or B * H * W * 18 >= 2 ** 31
+    if (B * H * W * C >= 2 ** 31 or B * H * W * 27 >= 2 ** 31
             or B * H * W * max(Cout, 1) >= 2 ** 31):
         raise ValueError("the DCN kernels index with 32-bit offsets; input "
                          "too large")
@@ -273,5 +335,6 @@ def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None) -> None:
 DCN_FWD = DcnForwardKernel()
 DCN_BWD_DX = DcnBackwardDx()
 DCN_BWD_DCOORD = DcnBackwardDcoord()
+DCN_FWD_OM = DcnForwardOmKernel()
 KERNELS = {"dcn_fwd": DCN_FWD, "dcn_bwd_dx": DCN_BWD_DX,
-           "dcn_bwd_dcoord": DCN_BWD_DCOORD}
+           "dcn_bwd_dcoord": DCN_BWD_DCOORD, "dcn_fwd_om": DCN_FWD_OM}

@@ -19,6 +19,15 @@ the forward `dcn_fwd`, and in the backward K2 `dcn_bwd_dx` and K3
 below, with ordinary autograd.  The mode comes from the environment
 (SIDE_TPU_TORCH_DCN = windowed | exact, SIDE_TPU_TORCH_DCN_RADIUS = R) or
 `set_dcn_mode` / `dcn_mode`.
+
+`deform_block_om` (offset/mask conv + DCN, what a DeformBlock runs) has a
+second, inference-only route, as in the JAX package
+(side_tpu/ops/deform_conv.py:322-348): with the fused switch on
+(SIDE_TPU_TORCH_DCN_FUSED=1, `set_dcn_fused` / `dcn_fused`; off by default),
+in windowed mode and when no gradient is wanted, the raw 27-channel conv
+output goes to one kernel, `dcn_fwd_om` (K4), which clamps the offsets and
+takes the mask's sigmoid itself.  K4 has no backward kernel (nor has the
+TPU's): whenever autograd would record the op the unfused route runs.
 """
 
 from __future__ import annotations
@@ -61,6 +70,32 @@ def dcn_mode(mode: str, radius: Optional[int] = None):
         yield
     finally:
         set_dcn_mode(*prev)
+
+
+_fused = os.environ.get("SIDE_TPU_TORCH_DCN_FUSED", "0") == "1"
+
+
+def set_dcn_fused(on: bool) -> bool:
+    """Switch the fused offset/mask route of `deform_block_om`; returns the
+    previous setting."""
+    global _fused
+    prev = _fused
+    _fused = bool(on)
+    return prev
+
+
+def get_dcn_fused() -> bool:
+    return _fused
+
+
+@contextlib.contextmanager
+def dcn_fused(on: bool = True):
+    """Scoped fused-route switch; restores the prior setting on exit."""
+    prev = set_dcn_fused(on)
+    try:
+        yield
+    finally:
+        set_dcn_fused(prev)
 
 
 def dcn_radius_tag() -> int:
@@ -135,6 +170,19 @@ def deform_conv_plain(x: torch.Tensor, offset: torch.Tensor,
     return out.reshape(B, H, W, Cout).to(x.dtype)
 
 
+def deform_conv_om_plain(x: torch.Tensor, om: torch.Tensor,
+                         weight: torch.Tensor, bias: Optional[torch.Tensor],
+                         radius: int) -> torch.Tensor:
+    """The plain version of the fused kernel `dcn_fwd_om`: om (B, H, W, 27)
+    is the raw offset/mask conv output, per tap [dy, dx, mask logit]; split,
+    sigmoid in f32, then `deform_conv_plain` (which clamps to +-radius)."""
+    B, H, W, _ = x.shape
+    om = om.reshape(B, H, W, 9, 3)
+    offset = om[..., 0:2].float()
+    mask = torch.sigmoid(om[..., 2].float())
+    return deform_conv_plain(x, offset, mask, weight, bias, radius)
+
+
 def deform_conv2d_windowed(x, offset, mask, weight, bias=None, radius=1):
     """Offsets clamped to [-radius, radius] (side_tpu deform_conv2d_windowed)."""
     return deform_conv_plain(x, offset, mask, weight, bias, radius)
@@ -201,15 +249,39 @@ def deform_conv2d_om(x: torch.Tensor, w_om: torch.Tensor, b_om: torch.Tensor,
     return deform_block_om(x, w_om.permute(3, 2, 0, 1), b_om, weight, bias)
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def deform_block_om(x: torch.Tensor, w_om_oihw: torch.Tensor,
                     b_om: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor]) -> torch.Tensor:
     """`deform_conv2d_om` with the offset/mask conv weight in OIHW, as the
-    model stores it."""
+    model stores it.  The conv is an ordinary convolution on both routes
+    (the JAX package leaves it to XLA, dcn_pallas.py:711); its output is
+    rounded to x's dtype before the DCN reads it."""
     B, H, W, _ = x.shape
     om = F.conv2d(x.permute(0, 3, 1, 2), w_om_oihw.to(x.dtype), padding=1)
     om = (om + b_om.to(om.dtype)[:, None, None]).permute(0, 2, 3, 1)
+    if (_fused and _mode == "windowed"
+            and not _wants_grad(x, w_om_oihw, b_om, weight, bias)):
+        return _deform_conv2d_fused(x, om, weight, bias)
     om = om.reshape(B, H, W, 9, 3)
     offset = om[..., 0:2].float()
     mask = torch.sigmoid(om[..., 2].float())
     return deform_conv2d(x, offset, mask, weight, bias)
+
+
+def _deform_conv2d_fused(x, om, weight, bias):
+    """The fused route: K4 for CUDA tensors, its plain version for CPU
+    tensors.  `om` is made NHWC-contiguous here (one copy, unless the conv
+    already answered in channels-last memory)."""
+    if x.device.type == "cuda":
+        from .dcn_cuda import DCN_FWD_OM
+        if bias is None:
+            bias = torch.zeros(weight.shape[-1], device=x.device)
+        return DCN_FWD_OM(x.contiguous(), om.contiguous(),
+                          weight.float().contiguous(),
+                          bias.float().contiguous(), _radius)
+    return deform_conv_om_plain(x, om, weight, bias, _radius)

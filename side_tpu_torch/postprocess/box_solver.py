@@ -95,10 +95,12 @@ def build_consts(im_shape, calib_p2, bl, alpha, dim_whl, box_left, box_right,
                  kpts, use_right: bool, grid: int = 28) -> SolveConsts:
     """Normalise the image observations and pick the vertex tables.
     dim_whl (N, 3) as (w, h, l); box_* (N, 4); kpts (N, 4) = [border_l_u,
-    border_r_u, kpt_u, kpt_type] in pixels; calib_p2 (3, 4) tensor."""
-    f = calib_p2[0, 0]
-    cx, cy = calib_p2[0, 2], calib_p2[1, 2]
-    w_max, h_max = im_shape[0], im_shape[1]
+    border_r_u, kpt_u, kpt_type] in pixels.  im_shape (2,) = (w, h),
+    calib_p2 (3, 4) and bl (a number or a 0-d tensor) hold for every row;
+    for rows of several frames they are per row: (N, 2), (N, 3, 4), (N,)."""
+    f = calib_p2[..., 0, 0]
+    cx, cy = calib_p2[..., 0, 2], calib_p2[..., 1, 2]
+    w_max, h_max = im_shape[..., 0], im_shape[..., 1]
     tb = 10.0
 
     ul, vt, ur, vb = (box_left[:, 0], box_left[:, 1], box_left[:, 2],
@@ -134,7 +136,8 @@ def build_consts(im_shape, calib_p2, bl, alpha, dim_whl, box_left, box_right,
         top_v=(vt - cy) / f, bottom_v=(vb - cy) / f,
         kpt_u=(kpt_pos - cx) / f,
         left_u_r=(ul_r - cx) / f, right_u_r=(ur_r - cx) / f,
-        alpha=alpha_eff, h=h, bl=torch.full_like(ul, float(bl)),
+        alpha=alpha_eff, h=h,
+        bl=torch.as_tensor(bl, dtype=ul.dtype, device=ul.device).expand_as(ul),
         lw=lt(_LEFT_W) * w / 2, ll=lt(_LEFT_L) * l / 2,
         rw=lt(_RIGHT_W) * w / 2, rl=lt(_RIGHT_L) * l / 2,
         bw=lt(_BOT_W) * w / 2, bot_l=lt(_BOT_L) * l / 2,

@@ -113,9 +113,18 @@ def sample_grid(box_left: torch.Tensor, borders: torch.Tensor):
     return grid.reshape(n, N_V * N_U, 2), (x2 > x1 + 0.5)
 
 
-def bilinear_border(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-    """Border-clamped bilinear sampling of img (H, W, C) at u, v (...)."""
-    H, W = img.shape[0], img.shape[1]
+def _col(a):
+    """A per-detection (N,) tensor as an (N, 1) column, to broadcast against
+    (N, P) and (I, N, P); numbers and 0-d tensors pass through."""
+    return a[:, None] if torch.is_tensor(a) and a.dim() == 1 else a
+
+
+def bilinear_border(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    base=None):
+    """Border-clamped bilinear sampling of img (H, W, C) at u, v (...).
+    With img (F, H, W, C), `base` (N, 1) = frame * H * W names each
+    detection's frame and u, v are (N, P) or (I, N, P)."""
+    H, W = img.shape[-3], img.shape[-2]
     u = u.clamp(0.0, W - 1.0)
     v = v.clamp(0.0, H - 1.0)
     x0f, y0f = torch.floor(u), torch.floor(v)
@@ -123,10 +132,13 @@ def bilinear_border(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     x0, y0 = x0f.long(), y0f.long()
     x1 = torch.clamp(x0 + 1, max=W - 1)
     y1 = torch.clamp(y0 + 1, max=H - 1)
-    flat = img.reshape(H * W, -1)
+    flat = img.reshape(-1, img.shape[-1])
 
     def g(yi, xi):
-        return flat[(yi * W + xi).reshape(-1)].reshape(*u.shape, -1)
+        idx = yi * W + xi
+        if base is not None:
+            idx = idx + base
+        return flat[idx.reshape(-1)].reshape(*u.shape, -1)
 
     return (g(y0, x0) * ((1 - fy) * (1 - fx))[..., None] +
             g(y0, x1) * ((1 - fy) * fx)[..., None] +
@@ -134,34 +146,45 @@ def bilinear_border(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
             g(y1, x1) * (fy * fx)[..., None])
 
 
-def photometric_errors(im_left, im_right, uv, dz, weight, depth_enum, fb):
-    """Warped L1 of every candidate depth: depth_enum (I, N) -> (I, N)."""
-    left_px = bilinear_border(im_left, uv[..., 0], uv[..., 1])    # (N, P, C)
+def photometric_errors(im_left, im_right, uv, dz, weight, depth_enum, fb,
+                       base=None):
+    """Warped L1 of every candidate depth: depth_enum (I, N) -> (I, N).
+    fb is a number or per detection (N,)."""
+    left_px = bilinear_border(im_left, uv[..., 0], uv[..., 1], base)
     zpix = dz[None] + depth_enum[..., None]                       # (I, N, P)
-    delta = fb / torch.clamp(zpix, min=0.5)
+    delta = _col(fb) / torch.clamp(zpix, min=0.5)
     right_px = bilinear_border(im_right, uv[None, ..., 0] - delta,
-                               uv[None, ..., 1].expand_as(delta))
+                               uv[None, ..., 1].expand_as(delta), base)
     err = (left_px[None] - right_px).abs() * weight[None, ..., None]
     return err.sum(dim=(2, 3))
 
 
-def _photometric_best(im_left, im_right, uv, dz, weight, depth_enum, fb):
+def _photometric_best(im_left, im_right, uv, dz, weight, depth_enum, fb,
+                      base=None):
     errors = photometric_errors(im_left, im_right, uv, dz, weight,
-                                depth_enum, fb)
+                                depth_enum, fb, base)
     best = torch.argmin(errors, dim=0)        # first of equal minima
     return torch.gather(depth_enum, 0, best[None])[0]
 
 
 def align_depths(im_left2x, im_right2x, f2x, bl, cx2x, cy2x, box_left2x,
-                 borders2x, poses, valid):
+                 borders2x, poses, valid, frame=None):
     """Alignment of N detections.  im_*2x: (H, W, 3) normalised 2x images;
     box / border coordinates in 2x pixels; poses (N, 7) = (x, y, z, w, h,
     l, theta).  Returns (status (N,), best_dis (N,)) with the disparity in
-    original pixels (+0.5 bias)."""
+    original pixels (+0.5 bias).
+
+    Detections of several frames at once: im_*2x (F, H, W, 3), `frame` (N,)
+    the frame index of each detection, and f2x, bl, cx2x, cy2x per
+    detection (N,)."""
     fb = f2x * bl
+    base = None
+    if frame is not None:
+        base = (frame.long() * (im_left2x.shape[1] * im_left2x.shape[2])
+                )[:, None]
     uv, has_span = sample_grid(box_left2x, borders2x)
-    rays = torch.stack([(uv[..., 0] - cx2x) / f2x,
-                        (uv[..., 1] - cy2x) / f2x], dim=-1)
+    rays = torch.stack([(uv[..., 0] - _col(cx2x)) / _col(f2x),
+                        (uv[..., 1] - _col(cy2x)) / _col(f2x)], dim=-1)
     dz, inside = ray_box_intersect(poses, rays)
     weight = (inside & has_span[:, None] & valid[:, None]).float()
     status = (weight.sum(dim=1) > 0).float()
@@ -173,13 +196,14 @@ def align_depths(im_left2x, im_right2x, f2x, bl, cx2x, cy2x, box_left2x,
               steps[:, None] * COARSE_STEP)
     coarse = torch.clamp(coarse, min=1.5)
     best = _photometric_best(im_left2x, im_right2x, uv, dz, weight, coarse,
-                             fb)
+                             fb, base)
     fine_step = COARSE_STEP * 2.0 / FINE_ITERS
     fsteps = torch.arange(FINE_ITERS, dtype=torch.float32,
                           device=poses.device)
     fine = (best[None, :] - FINE_ITERS * fine_step / 2 +
             fsteps[:, None] * fine_step)
-    best = _photometric_best(im_left2x, im_right2x, uv, dz, weight, fine, fb)
+    best = _photometric_best(im_left2x, im_right2x, uv, dz, weight, fine, fb,
+                             base)
 
     best_dis = fb / (best * 2.0) + 0.5
     dis_init = fb / (z0 * 2.0) + 0.5
@@ -187,10 +211,11 @@ def align_depths(im_left2x, im_right2x, f2x, bl, cx2x, cy2x, box_left2x,
 
 
 def upsample2x(img: torch.Tensor) -> torch.Tensor:
-    """(H, W, C) -> (2H, 2W, C) bilinear, half-pixel centres (equal to
-    jax.image.resize(..., "bilinear") for a 2x upsample)."""
-    x = img.permute(2, 0, 1)[None]
+    """(H, W, C) -> (2H, 2W, C), or (F, H, W, C) -> (F, 2H, 2W, C): bilinear,
+    half-pixel centres (equal to jax.image.resize(..., "bilinear") for a 2x
+    upsample)."""
+    x = img[None] if img.dim() == 3 else img
     out = torch.nn.functional.interpolate(
-        x, scale_factor=2, mode="bilinear", align_corners=False,
-        antialias=False)
-    return out[0].permute(1, 2, 0)
+        x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+        align_corners=False, antialias=False).permute(0, 2, 3, 1)
+    return out[0] if img.dim() == 3 else out

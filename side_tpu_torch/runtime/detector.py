@@ -1,11 +1,15 @@
 """Inference engine with per-stage timing (port of
-side_tpu/runtime/detector.py, single-frame path).
+side_tpu/runtime/detector.py).
 
 `load_and_pre` runs the host stages (image load, affine warp to the input
 size, uint8); `dispatch` enqueues the device work — normalisation, the
 network, sigmoid + `ddd_decode`, and the fused tail — without waiting;
 `finish` waits (`torch.cuda.synchronize()` fences), fetches one (K, 13)
 array and applies the score filter.  `run` does the three.
+`dispatch_batch` / `finish_batch` do the same for a group of frames: one
+pass of the network and one tail over the frame axis.  With
+SIDE_TPU_TORCH_HOST_TAIL=1 `dispatch` stops after the decode and `finish`
+runs the host tail (`postprocess/post_process.py:process_frame`).
 
 The Detector runs on `cuda` unless the caller passes `device="cpu"`; with
 no CUDA device and no explicit device it raises.
@@ -26,7 +30,9 @@ from ..data.dataset import warp_affine
 from ..models.factory import create_model
 from ..ops import decode as dec
 from ..ops import deform_conv as dc
-from ..postprocess.device_tail import run_tail
+from ..postprocess.device_tail import (bucket_results, run_tail,
+                                       run_tail_batch)
+from ..postprocess.post_process import process_frame
 from .. import weights
 
 
@@ -136,7 +142,8 @@ class Detector:
     def load_and_pre(self, images_or_paths, calib):
         """Host stages: image load + affine pre-process."""
         t0 = time.time()
-        if isinstance(images_or_paths[0], str):
+        if isinstance(images_or_paths, (list, tuple)) and \
+                isinstance(images_or_paths[0], str):
             image = _imread(images_or_paths[0])
             image_right = _imread(images_or_paths[1])
         else:
@@ -159,33 +166,52 @@ class Detector:
 
     @torch.inference_mode()
     def dispatch(self, pre, run_align: bool = True) -> Dict:
-        """Enqueue the network, decode and fused tail without waiting."""
+        """Enqueue the network, decode and fused tail without waiting.
+        With SIDE_TPU_TORCH_HOST_TAIL=1 the tail is left to `finish`, which
+        then runs it on the host."""
         t = time.time()
         dets, dets_r, info = self.process(pre["batch"])
+        if os.environ.get("SIDE_TPU_TORCH_HOST_TAIL", "0") == "1":
+            pre.update(handles=(dets, dets_r, info), fused=False,
+                       run_align=run_align, t_dispatch=time.time() - t)
+            return pre
         rows, classes = run_tail(dets[0], dets_r[0], info[0], pre["image"],
                                  pre["image_right"], pre["meta"], self.cfg,
                                  run_align=run_align)
-        pre.update(handles=(rows, classes), run_align=run_align,
+        pre.update(handles=(rows, classes), fused=True, run_align=run_align,
                    t_dispatch=time.time() - t)
         return pre
 
-    def finish(self, pending) -> Dict:
-        """Wait for the device, fetch the rows, filter by score.
+    def _bucket(self, rows: np.ndarray, classes: np.ndarray):
+        return bucket_results(rows, classes,
+                              rows[:, 12] > self.cfg.peak_thresh,
+                              self.cfg.num_classes)
+
+    def finish(self, pending, run_align=None) -> Dict:
+        """Wait for the device, fetch the rows, filter by score.  A
+        `run_align` that differs from the dispatch's re-dispatches the frame.
 
         `net` is the host time from dispatch to the device's end (enqueue +
         wait): eager PyTorch may block while enqueueing, so the wait alone
         would under-count the device program."""
+        if run_align is not None and run_align != pending["run_align"] \
+                and pending["fused"]:
+            pending = self.dispatch(pending, run_align=run_align)
         t_net0 = time.time()
-        rows, classes = pending["handles"]
         _sync(self.device)
         t_net = time.time()
-        rows = rows.cpu().numpy()
-        classes = classes.cpu().numpy()
-        t_dec = time.time()
-        keep = rows[:, 12] > self.cfg.peak_thresh
-        results = {}
-        for cls in range(self.cfg.num_classes):
-            results[cls + 1] = rows[keep & (classes == cls)]
+        if pending["fused"]:
+            rows, classes = (h.cpu().numpy() for h in pending["handles"])
+            t_dec = time.time()
+            results = self._bucket(rows, classes)
+        else:
+            dets, dets_r, info = (h[0].float().cpu().numpy()
+                                  for h in pending["handles"])
+            t_dec = time.time()
+            results = process_frame(
+                dets, dets_r, info, pending["meta"], self.cfg,
+                img_left=pending["image"], img_right=pending["image_right"],
+                run_align=pending["run_align"])
         t_post = time.time()
         results = self.merge_outputs(results)
         t_end = time.time()
@@ -197,6 +223,48 @@ class Detector:
             "dec": t_dec - t_net, "post": t_post - t_dec,
             "merge": t_end - t_post,
         }
+
+    # --------------------------------------------------- batched pipeline
+    @torch.inference_mode()
+    def dispatch_batch(self, pres, run_align: bool = True) -> Dict:
+        """Batched dispatch: one pass of the network + decode over B frames
+        (2B images through the trunk) and one tail over the frame axis.
+        `pres` is a list of `load_and_pre` outputs."""
+        t = time.time()
+        batch = {k: torch.cat([p["batch"][k] for p in pres], dim=0)
+                 for k in pres[0]["batch"]}
+        dets, dets_r, info = self.process(batch)
+        rows, classes = run_tail_batch(
+            dets, dets_r, info,
+            [p["image"] for p in pres], [p["image_right"] for p in pres],
+            [p["meta"] for p in pres], self.cfg, run_align=run_align)
+        return {"handles": (rows, classes), "pres": pres,
+                "t_dispatch": time.time() - t}
+
+    def finish_batch(self, pending) -> list:
+        """Fetch the batched rows; returns one result dict per frame, the
+        group's net and dec times shared out evenly."""
+        pres = pending["pres"]
+        t_net0 = time.time()
+        _sync(self.device)
+        t_net = time.time()
+        rows_b, classes_b = (h.cpu().numpy() for h in pending["handles"])
+        t_dec = time.time()
+        net = pending["t_dispatch"] + (t_net - t_net0)
+        outs = []
+        for pre, rows, classes in zip(pres, rows_b, classes_b):
+            results = self._bucket(rows, classes)
+            t_post = time.time()
+            results = self.merge_outputs(results)
+            t_end = time.time()
+            outs.append({
+                "results": results,
+                "tot": t_end - pre["t0"], "load": pre["load"],
+                "pre": pre["pre"], "net": net / len(pres),
+                "dec": (t_dec - t_net) / len(pres),
+                "post": t_post - t_dec, "merge": t_end - t_post,
+            })
+        return outs
 
     def run(self, images_or_paths, image_id=None, calib=None,
             run_align: bool = True) -> Dict:

@@ -1,7 +1,9 @@
-"""Where one serving frame's, or one training step's, time goes on the GPU.
+"""Where one serving frame's, one batched validation group's, or one
+training step's time goes on the GPU.
 
     python -m side_tpu_torch.stage_profile [--frames 5] [--out FILE]
     python -m side_tpu_torch.stage_profile --train [--frames 5] [--out FILE]
+    python -m side_tpu_torch.stage_profile --val --eval_batch 4 [--dcn_fused]
 
 Serving: runs the flagship Detector (Config(): 384x1280 input, bf16, K=100)
 on seeded random weights and random KITTI-size frames, as chip_smoke.py
@@ -20,6 +22,14 @@ of rendered scenes held in memory, He-scaled seeded weights): `stages` are
 the forward + loss, backward and optimizer of a step between fences,
 median over `--frames` steps after two warm-up steps, and `profile` one
 more step under torch.profiler.
+
+Validation (`--val --eval_batch B`): the flagship Detector on rendered
+scenes held in memory, one group of B frames through
+`dispatch_batch` / `finish_batch` (`dispatch` / `finish` at B = 1):
+`stages` are the group's pre-process, network, decode, batched tail and
+fetch between fences, median over `--frames` groups after two warm-up
+groups, and `profile` one more group under torch.profiler (launches, busy
+share, time by kernel kind), with the per-frame figures beside them.
 
 Prints the card's name and power limit, then one JSON object per section;
 with `--out` also writes them to FILE.  Needs a CUDA device.
@@ -44,6 +54,7 @@ from .runtime.synthetic import (he_scale, kitti_calib, perturb_offsets,
                                 random_frame)
 
 KINDS = (  # first match wins; lower-case substrings of kernel names
+    ("dcn_fwd_om (K4)", ("dcn_fwd_om",)),
     ("dcn_fwd", ("dcn_fwd",)),
     ("dcn_bwd_dx (K2)", ("dcn_bwd_dx",)),
     ("dcn_bwd_dcoord (K3)", ("dcn_bwd_dcoord",)),
@@ -71,21 +82,6 @@ def _fenced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def frame_stages(det: Detector, frame, calib) -> dict:
-    """One frame, each stage between device fences; times in ms."""
-    from .postprocess.device_tail import run_tail
-    pre, t_pre = _fenced(lambda: det.load_and_pre(frame, calib))
-    out, t_net = _fenced(lambda: det.network(pre["batch"]))
-    (dets, dets_r, info), t_dec = _fenced(lambda: det.decode(out))
-    with torch.inference_mode():
-        (rows, _), t_tail = _fenced(lambda: run_tail(
-            dets[0], dets_r[0], info[0], pre["image"], pre["image_right"],
-            pre["meta"], det.cfg))
-    _, t_fetch = _fenced(lambda: rows.cpu().numpy())
-    return {"pre": t_pre, "network": t_net, "decode": t_dec,
-            "tail": t_tail, "fetch": t_fetch}
 
 
 def _busy_us(intervals) -> float:
@@ -186,11 +182,73 @@ def train_profile(card: str, steps: int):
     return stages, prof
 
 
+def group_stages(det: Detector, frames) -> dict:
+    """One group of (image id, (left, right), calib) frames, a single one
+    for serving, each stage between device fences; times in ms."""
+    from .postprocess.device_tail import run_tail_batch
+    pres, t_pre = _fenced(lambda: [det.load_and_pre(pair, calib)
+                                   for _, pair, calib in frames])
+    batch = {k: torch.cat([p["batch"][k] for p in pres], dim=0)
+             for k in pres[0]["batch"]}
+    out, t_net = _fenced(lambda: det.network(batch))
+    (dets, dets_r, info), t_dec = _fenced(lambda: det.decode(out))
+    with torch.inference_mode():
+        (rows, _), t_tail = _fenced(lambda: run_tail_batch(
+            dets, dets_r, info, [p["image"] for p in pres],
+            [p["image_right"] for p in pres], [p["meta"] for p in pres],
+            det.cfg))
+    _, t_fetch = _fenced(lambda: rows.cpu().numpy())
+    return {"pre": t_pre, "network": t_net, "decode": t_dec,
+            "tail": t_tail, "fetch": t_fetch}
+
+
+def val_profile(card: str, groups: int, eval_batch: int, fused: bool):
+    from .data.synthetic import val_scenes
+    from .ops import deform_conv as dc
+    det = Detector(Config())
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=1)
+    scenes = val_scenes(eval_batch * (groups + 3), seed=0)
+    chunks = [scenes[i:i + eval_batch]
+              for i in range(0, len(scenes), eval_batch)]
+
+    def run_group(frames):
+        pres = [det.load_and_pre(pair, calib) for _, pair, calib in frames]
+        if eval_batch == 1:
+            return [det.finish(det.dispatch(pres[0]))]
+        return det.finish_batch(det.dispatch_batch(pres))
+
+    with dc.dcn_fused(fused):
+        for frames in chunks[:2]:
+            run_group(frames)
+        runs = [group_stages(det, frames) for frames in chunks[2:-1]]
+        prof = profile_call(lambda: run_group(chunks[-1]))
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    stages = {"card": card, "groups": len(runs), "eval_batch": eval_batch,
+              "dcn_fused": fused, "median_ms": med,
+              "median_ms_per_frame": {k: v / eval_batch
+                                      for k, v in med.items()},
+              "min_ms": {k: min(r[k] for r in runs) for k in runs[0]},
+              "max_ms": {k: max(r[k] for r in runs) for k in runs[0]}}
+    prof = {"card": card, "eval_batch": eval_batch, "dcn_fused": fused,
+            **prof}
+    if "kernel_launches" in prof:
+        prof["kernel_launches_per_frame"] = \
+            prof["kernel_launches"] / eval_batch
+        prof["wall_ms_per_frame"] = prof["wall_ms"] / eval_batch
+    return stages, prof
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of a frame")
+    ap.add_argument("--val", action="store_true",
+                    help="profile a batched validation group")
+    ap.add_argument("--eval_batch", type=int, default=4)
+    ap.add_argument("--dcn_fused", action="store_true",
+                    help="--val: the fused offset/mask DCN kernel")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -204,6 +262,10 @@ def main(argv=None) -> int:
     if args.train:
         stages, prof = train_profile(card, args.frames)
         return _report(stages, prof, args.out)
+    if args.val:
+        stages, prof = val_profile(card, args.frames, args.eval_batch,
+                                   args.dcn_fused)
+        return _report(stages, prof, args.out)
     cfg = Config()
     det = Detector(cfg)
     he_scale(det.model)
@@ -213,7 +275,7 @@ def main(argv=None) -> int:
     frames = [random_frame(rng) for _ in range(args.frames + 3)]
     for f in frames[:2]:
         det.run(f, calib=calib)
-    runs = [frame_stages(det, f, calib) for f in frames[2:-1]]
+    runs = [group_stages(det, [(0, f, calib)]) for f in frames[2:-1]]
     stages = {"card": card, "frames": len(runs),
               "median_ms": {k: statistics.median(r[k] for r in runs)
                             for k in runs[0]},

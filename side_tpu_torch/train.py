@@ -7,6 +7,8 @@ Reads the KITTI-layout data under `--data_dir` (as tools/train.py does;
 PNGs need OpenCV), trains on the GPU and writes `.npz` checkpoints in the
 JAX package's format under `exp/<task>/<exp_id>/`.  Add `--device cpu` to
 run the plain CPU path.  One device: `--distributed` is not ported yet.
+The validation inside the loop reports losses; for KITTI result files and
+AP run `python -m side_tpu_torch.val` on a checkpoint.
 """
 
 from __future__ import annotations

@@ -87,3 +87,18 @@ def rel_err(got, want) -> float:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def spread_detector(cfg, seed: int):
+    """A port Detector on the CPU whose decode order is stable: the
+    well-conditioned seeded weights of `interior_init`, with the heatmap
+    head's last conv scaled by 50 so that neighbouring scores lie ~1e-3
+    apart (float noise between batch sizes is ~1e-6).  Port-only tests use
+    it to compare routes that must keep the same top-K order."""
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.synthetic import interior_init
+    det = Detector(cfg, device="cpu", seed=seed)
+    interior_init(det.model, seed=seed + 10)
+    with torch.no_grad():
+        det.model.hm.Conv_1.weight.mul_(50.0)
+    return det
