@@ -9,13 +9,17 @@ Phases, each of which must pass:
      dcn_fwd_om.cu and gather_bilinear.cu, one nvcc each, started together);
   2. the forward kernel against its plain PyTorch version on the card at the
      7 distinct DeformBlock shapes of the serving path (B=2), in bf16 and
-     f32 with R=1, and R=-1 (exact) at one shape; times, bound, F.conv2d;
+     f32 with R=1, and R=-1 (exact) at one shape, and at two ragged bf16
+     shapes (B=3, 13x37: one the tensor-core route takes, one with Cin=24
+     that it does not); per shape the route taken, times (also with all
+     offsets 0), bound, F.conv2d and, on the tensor-core route, the time of
+     the CUDA-core body (the earlier design) on the same operands;
   3. the serving path: Detector(Config()) at full width (384x1280, bf16,
      K=100) on random seeded weights (He-scaled, offset convs perturbed)
      runs 3 frames of random 375x1242 stereo pairs through load_and_pre,
      dispatch and finish (Detector.run); every frame must launch the DCN
-     forward kernel 16 times, the backward kernels never, and give K finite
-     rows;
+     forward kernel 16 times, all on the tensor-core route, the backward
+     kernels never, and give K finite rows;
   4. a small-input check: the same network on the card and on the CPU (f32,
      TF32 off) agree to 1e-3 of each head's largest value;
   5. the backward kernels K2 (dcn_bwd_dx) and K3 (dcn_bwd_dcoord) against
@@ -23,13 +27,16 @@ Phases, each of which must pass:
      DeformBlock shapes of a training step (B=8: 4 stereo pairs), bf16 and
      f32 with R=1, and R=-1 at one shape, offsets beyond +-R included;
      the forward kernel's output at the same shapes against the plain
-     version's (phase 2's tolerance); times, plain times and bounds;
+     version's (phase 2's tolerance); the two ragged bf16 shapes of phase
+     2; the route, times, plain times, bounds and, for the forward and K3
+     on the tensor-core route, the CUDA-core body's time;
   6. the training path: Trainer(Config()) at full width (384x1280, bf16,
      max_objs 50, roi_size 16) on He-scaled seeded weights with perturbed
      offsets, fed 4 rendered stereo pairs held in memory, takes 1 warm-up
      and 3 timed steps (Trainer.train_step); every loss part finite, the
      parameters and BatchNorm statistics move, and the forward kernel, K2
-     and K3 each launch 16 times per step; step time, its upload /
+     and K3 each launch 16 times per step, the forward and K3 on the
+     tensor-core route every time; step time, its upload /
      forward / backward / optimizer split and the peak device memory;
   7. a small train-step check: one f32 step on the card and one on the CPU
      from the same weights and batch (TF32 off; the well-conditioned
@@ -41,7 +48,9 @@ Phases, each of which must pass:
      1e-6 input change, over three draws, is printed beside them;
   8. the fused forward kernel K4 (dcn_fwd_om) against its plain version and
      against dcn_fwd fed the split operands, at the 7 DeformBlock shapes
-     with B=2 and B=8, bf16 and f32, offsets beyond +-1; the kernel's time,
+     with B=2 and B=8, bf16 and f32, offsets beyond +-1 (equal to dcn_fwd's
+     output bit for bit), and the two ragged shapes; the route, the
+     kernel's time, the CUDA-core body's time on the tensor-core route,
      the time of the fused route for the layer (the NHWC copy of the conv's
      output + the kernel) and of the unfused route (split, sigmoid, casts,
      dcn_fwd), plain times and bounds;
@@ -53,14 +62,20 @@ Phases, each of which must pass:
  10. the validation path: val.run_pass at full width over 10 rendered
      scenes held in memory, eval_batch 4 (3 groups of 8 images through the
      trunk, the last padded), fused switch on, pipelined: every group must
-     launch dcn_fwd_om 16 times and dcn_fwd never; result files for exactly
+     launch dcn_fwd_om 16 times, all on the tensor-core route, and dcn_fwd
+     never; result files for exactly
      the 10 frames; the KITTI evaluator is built and run on them against
      the written ground truth and its AP lines parsed.  Then the same
      scenes frame by frame (eval_batch 1, unfused) and the rows of the two
      runs compared (VAL_MATCH_RULE); ms per image for eval_batch 1 and 4,
      fused and unfused; launches and device busy share of one group and of
      one frame.
-Prints a `kernels` JSON line, the card's name and power limit, and, last,
+Kernel times are device times: each timed call is queued behind a short
+spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
+forward and of K3 timed on the same bf16 operands in the same run: the design
+that the tensor-core route replaced.
+Prints a `kernels` JSON line, the script's elapsed time, the card's name and
+power limit, and, last,
 {"ok": true, "device": {...}}.  Exits non-zero if any phase fails or no
 CUDA device is present.
 """
@@ -92,17 +107,25 @@ SERVING_SHAPES = [
 # images (both views through one trunk pass); same counts per image pair
 TRAIN_BATCH = 8
 BATCH = 2
+# ragged bf16 cases (Cin, H, W, Cout) at B=3: 1,443 pixels, no multiple of a
+# tile; the first takes the tensor-core route, Cin=24 the CUDA-core route
+RAGGED_BATCH = 3
+RAGGED_SHAPES = [(64, 13, 37, 64), (24, 13, 37, 64)]
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # tensor cores, dense
               torch.float32: 67e12}    # f32 outside the tensor cores
 # kernel vs plain version, max |diff| / max |plain|: f32 differs only in the
-# order of the 9*Cin-term sums; bf16 output rounds once more (2 bf16 ulps)
+# order of the 9*Cin-term sums; bf16 output rounds once more (2 bf16 ulps);
+# the tensor-core route also rounds the weight to bf16, which moves the f32
+# sums by less than one ulp of the output (csrc/dcn_fwd_body.cuh)
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 # K2/K3 vs autograd of the plain version, per cotangent, max |diff| / max
 # |plain|: f32 sum order and atomics; bf16: the plain version also rounds
 # the column gradient and d_x to bf16 (csrc/dcn_bwd.cu)
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 REPS = 20
+# ~0.3 ms at the card's clock: longer than a wrapper's host time
+SPIN_CYCLES = 500_000
 STAGES = ("tot", "pre", "net", "dec", "post")
 
 
@@ -117,7 +140,11 @@ def check(ok, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` runs, by CUDA events."""
+    """Median device time of fn() over `reps` runs, by CUDA events.  Each
+    timed run is queued behind a short spin on the device (SPIN_CYCLES), so
+    that the host's work to launch fn() (wrapper checks, allocations) runs
+    while the card is busy and does not count: for a single kernel the
+    figure is the kernel's own time on the card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -125,12 +152,35 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_counts(kernels) -> None:
+    for kern in kernels.values():
+        kern.launches = 0
+        if hasattr(kern, "tensor_core_launches"):
+            kern.tensor_core_launches = 0
+
+
+def route_and_earlier_ms(kernel, args, cin, cout, dtype):
+    """The route `kernel` takes for these operands and, on the tensor-core
+    route, the time of the CUDA-core body (the earlier design) on them."""
+    from side_tpu_torch.ops.dcn_cuda import dcn_route
+    route = dcn_route(dtype, cin, cout)
+    before = kernel.tensor_core_launches
+    kernel(*args)
+    check(kernel.tensor_core_launches - before == (route == "tensor"),
+          f"{type(kernel).__name__} did not take the {route} route")
+    earlier = None
+    if route == "tensor":
+        earlier = time_ms(lambda: kernel(*args, cuda_core=True))
+    return route, earlier
 
 
 def power_line() -> str:
@@ -188,13 +238,16 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    cases = [(shape, n, dtype, 1) for shape, n in SERVING_SHAPES
+    cases = [(shape, n, dtype, 1, BATCH) for shape, n in SERVING_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1)
+    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, BATCH)
               for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH)
+              for shape in RAGGED_SHAPES]
     with torch.inference_mode():
-        for (cin, h, w, cout), n, dtype, radius in cases:
-            x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen)
+        for (cin, h, w, cout), n, dtype, radius, batch in cases:
+            x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen,
+                                             batch)
             got = DCN_FWD(x, off, mask, wt, bias, radius)
             ref = deform_conv_plain(x, off, mask, wt, bias, radius)
             torch.cuda.synchronize()
@@ -207,10 +260,18 @@ def phase_kernels() -> dict:
             xc = x.permute(0, 3, 1, 2).contiguous()
             wc = wt.permute(3, 2, 0, 1).contiguous().to(dtype)
             conv_ms = time_ms(lambda: F.conv2d(xc, wc, padding=1))
-            bound, bound_by = _bound_ms(cin, h, w, cout, dtype)
-            row = {"cin": cin, "h": h, "w": w, "cout": cout,
+            bound, bound_by = _bound_ms(cin, h, w, cout, dtype, batch)
+            route, earlier = route_and_earlier_ms(
+                DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
+            # the same work sampling the regular grid (all offsets 0): says
+            # whether the gathers cost by their bytes or by their count
+            zero = torch.zeros_like(off)
+            grid_ms = time_ms(lambda: DCN_FWD(x, zero, mask, wt, bias,
+                                              radius))
+            row = {"batch": batch, "cin": cin, "h": h, "w": w, "cout": cout,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "per_frame": n,
+                   "radius": radius, "per_frame": n, "route": route,
+                   "cuda_core_ms": earlier, "regular_grid_ms": grid_ms,
                    "max_abs_err": diff, "max_rel_err": rel,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by, "conv2d_ref_ms": conv_ms}
@@ -236,8 +297,7 @@ def phase_main_path() -> dict:
     rng = np.random.RandomState(0)
     calib = kitti_calib()
     frames = [random_frame(rng) for _ in range(3)]
-    for kern in KERNELS.values():
-        kern.launches = 0
+    reset_counts(KERNELS)
     outs, raw = [], []
     for f in frames:        # Detector.run, with the tail's raw rows kept
         pending = det.dispatch(det.load_and_pre(f, calib))
@@ -260,8 +320,13 @@ def phase_main_path() -> dict:
           f"expected {16 * len(frames)} dcn_fwd launches, got {launches}")
     check(bwd_launches == 0, f"serving launched {bwd_launches} backward "
           "kernels")
-    log(f"[main] dcn_fwd launches: {launches} over {len(frames)} frames")
+    check(DCN_FWD.tensor_core_launches == launches,
+          f"only {DCN_FWD.tensor_core_launches} of {launches} dcn_fwd "
+          "launches took the tensor-core route")
+    log(f"[main] dcn_fwd launches: {launches} over {len(frames)} frames, "
+        f"{DCN_FWD.tensor_core_launches} on the tensor-core route")
     return {"launches": launches,
+            "tensor_core_launches": DCN_FWD.tensor_core_launches,
             "frames": [{k: out[k] for k in STAGES} for out in outs]}
 
 
@@ -295,12 +360,12 @@ def phase_small_reference() -> None:
     check(bool(torch.isfinite(got["depth"]).all()), "non-finite depth")
 
 
-def _bwd_bound_ms(cin, h, w, cout, dtype):
+def _bwd_bound_ms(cin, h, w, cout, dtype, batch=TRAIN_BATCH):
     """Least time of K2 and K3 at one shape: FLOPs over the dtype's peak
     (the in-kernel products g·W_k^T and, for K3, col^T·g, plus the per-
     sample arithmetic) against the bytes each must move (inputs read once,
     outputs written once) over the memory rate."""
-    pix = TRAIN_BATCH * h * w
+    pix = batch * h * w
     item = torch.tensor([], dtype=dtype).element_size()
     mac = pix * 9 * cin * cout
     geo = pix * 27 * 4 + 9 * cin * cout * 4          # offsets, mask, weight
@@ -331,13 +396,14 @@ def phase_backward_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
     rows = []
-    cases = [(shape, n, dtype, 1) for shape, n in SERVING_SHAPES
+    cases = [(shape, n, dtype, 1, TRAIN_BATCH) for shape, n in SERVING_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1)
+    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, TRAIN_BATCH)
               for dtype in (torch.bfloat16, torch.float32)]
-    for (cin, h, w, cout), n, dtype, radius in cases:
-        x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen,
-                                         TRAIN_BATCH)
+    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH)
+              for shape in RAGGED_SHAPES]
+    for (cin, h, w, cout), n, dtype, radius, batch in cases:
+        x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
         g = torch.randn(x.shape[:3] + (cout,), generator=gen,
                         device="cuda").to(dtype)
         leaves = [t.clone().requires_grad_(True)
@@ -367,17 +433,24 @@ def phase_backward_kernels() -> dict:
             ref_out, ref_in[0], g, retain_graph=True))
         k3_plain = time_ms(lambda: torch.autograd.grad(
             ref_out, ref_in[1:4], g, retain_graph=True))
-        bounds = _bwd_bound_ms(cin, h, w, cout, dtype)
-        bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, TRAIN_BATCH)
+        bounds = _bwd_bound_ms(cin, h, w, cout, dtype, batch)
+        bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, batch)
         del ref_out
-        for name, ms, plain_ms, parts in (
-                ("dcn_fwd", fwd_ms, fwd_plain, ("out",)),
-                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",)),
+        with torch.no_grad():
+            fwd_route = route_and_earlier_ms(
+                DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
+        k3_route = route_and_earlier_ms(
+            DCN_BWD_DCOORD, (x, g, off, mask, wt, radius), cin, cout, dtype)
+        for name, ms, plain_ms, parts, (route, earlier) in (
+                ("dcn_fwd", fwd_ms, fwd_plain, ("out",), fwd_route),
+                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",), ("cuda_core", None)),
                 ("dcn_bwd_dcoord", k3_ms, k3_plain,
-                 ("offset", "mask", "weight"))):
-            row = {"kernel": name, "cin": cin, "h": h, "w": w, "cout": cout,
+                 ("offset", "mask", "weight"), k3_route)):
+            row = {"kernel": name, "batch": batch, "cin": cin, "h": h,
+                   "w": w, "cout": cout,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "per_step": n,
+                   "radius": radius, "per_step": n, "route": route,
+                   "cuda_core_ms": earlier,
                    "max_abs_err": max(errs[p][0] for p in parts),
                    "max_rel_err": max(errs[p][1] for p in parts),
                    "ms": ms, "plain_ms": plain_ms,
@@ -410,8 +483,7 @@ def phase_training(steps: int = 3) -> dict:
     params0 = {k: v.detach().clone() for k, v in tr.params.items()}
     stats0 = _batch_stats(model)
     torch.cuda.reset_peak_memory_stats()
-    for kern in KERNELS.values():
-        kern.launches = 0
+    reset_counts(KERNELS)
     step_ms, losses = [], []
     for i in range(steps + 1):
         torch.cuda.synchronize()
@@ -421,6 +493,9 @@ def phase_training(steps: int = 3) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in stats.items()})
     launches = {name: k.launches for name, k in KERNELS.items()}
+    tensor_core = {name: k.tensor_core_launches
+                   for name, k in KERNELS.items()
+                   if hasattr(k, "tensor_core_launches")}
     peak = torch.cuda.max_memory_allocated()
     for i, (ms, st) in enumerate(zip(step_ms, losses)):
         log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {ms:.1f} ms "
@@ -433,6 +508,10 @@ def phase_training(steps: int = 3) -> dict:
         want = 0 if name == "dcn_fwd_om" else 16 * n_steps
         check(count == want, f"{name}: {count} launches in {n_steps} steps, "
               f"expected {want}")
+        # K2 has no tensor-core route; the forward and K3 always take it
+        check(tensor_core.get(name, want) == want,
+              f"{name}: {tensor_core.get(name)} of {want} launches took the "
+              "tensor-core route")
     moved = sum(not torch.equal(params0[k], v.detach())
                 for k, v in tr.params.items())
     check(moved >= len(params0) - 6, f"only {moved} of {len(params0)} "
@@ -446,7 +525,8 @@ def phase_training(steps: int = 3) -> dict:
     out = {"step_ms": timed, "step_ms_median": statistics.median(timed),
            "warmup_ms": step_ms[0], "split": split,
            "peak_mem_gib": peak / 2 ** 30, "launches": launches,
-           "steps": n_steps, "pairs_per_step": cfg.batch_size,
+           "tensor_core_launches": tensor_core, "steps": n_steps,
+           "pairs_per_step": cfg.batch_size,
            "params_moved": moved, "params": len(params0)}
     log(f"[train] {json.dumps(out)}")
     return out
@@ -604,47 +684,55 @@ def phase_fused_kernel() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(40)
     rows = []
+    cases = [(batch, shape, n, dtype) for batch in (2, 8)
+             for shape, n in SERVING_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(RAGGED_BATCH, shape, 0, torch.bfloat16)
+              for shape in RAGGED_SHAPES]
     with torch.inference_mode():
-        for batch in (2, 8):
-            for (cin, h, w, cout), n in SERVING_SHAPES:
-                for dtype in (torch.bfloat16, torch.float32):
-                    x, om, wt, bias = _om_inputs(cin, h, w, cout, dtype, gen,
-                                                 batch)
-                    got = DCN_FWD_OM(x, om, wt, bias, 1)
-                    ref = deform_conv_om_plain(x, om, wt, bias, 1)
-                    # as the model's conv leaves it: NCHW memory, NHWC view
-                    om_view = om.permute(0, 3, 1, 2).contiguous().permute(
-                        0, 2, 3, 1)
-                    split = _unfused_route(x, om_view, wt, bias, 1)
-                    torch.cuda.synchronize()
-                    scale = max(ref.float().abs().max().item(), 1e-30)
-                    diff = (got.float() - ref.float()).abs().max().item()
-                    diff_k1 = (got.float() - split.float()).abs().max().item()
-                    ms = time_ms(lambda: DCN_FWD_OM(x, om, wt, bias, 1))
-                    fused_ms = time_ms(lambda: DCN_FWD_OM(
-                        x, om_view.contiguous(), wt, bias, 1))
-                    unfused_ms = time_ms(lambda: _unfused_route(
-                        x, om_view, wt, bias, 1))
-                    plain_ms = time_ms(lambda: deform_conv_om_plain(
-                        x, om, wt, bias, 1), reps=5, warmup=1)
-                    bound, bound_by = _om_bound_ms(cin, h, w, cout, dtype,
-                                                   batch)
-                    row = {"kernel": "dcn_fwd_om", "batch": batch,
-                           "cin": cin, "h": h, "w": w, "cout": cout,
-                           "dtype": str(dtype).replace("torch.", ""),
-                           "radius": 1, "per_group": n,
-                           "max_abs_err": diff, "max_rel_err": diff / scale,
-                           "max_rel_err_vs_dcn_fwd": diff_k1 / scale,
-                           "ms": ms, "fused_route_ms": fused_ms,
-                           "unfused_route_ms": unfused_ms,
-                           "plain_ms": plain_ms, "bound_ms": bound,
-                           "bound_by": bound_by}
-                    rows.append(row)
-                    log(f"[fused] {json.dumps(row)}")
-                    check(np.isfinite(diff) and
-                          row["max_rel_err"] <= TOLERANCE[dtype] and
-                          row["max_rel_err_vs_dcn_fwd"] <= TOLERANCE[dtype],
-                          f"dcn_fwd_om disagrees: {row}")
+        for batch, (cin, h, w, cout), n, dtype in cases:
+            x, om, wt, bias = _om_inputs(cin, h, w, cout, dtype, gen,
+                                         batch)
+            got = DCN_FWD_OM(x, om, wt, bias, 1)
+            ref = deform_conv_om_plain(x, om, wt, bias, 1)
+            # as the model's conv leaves it: NCHW memory, NHWC view
+            om_view = om.permute(0, 3, 1, 2).contiguous().permute(
+                0, 2, 3, 1)
+            split = _unfused_route(x, om_view, wt, bias, 1)
+            torch.cuda.synchronize()
+            scale = max(ref.float().abs().max().item(), 1e-30)
+            diff = (got.float() - ref.float()).abs().max().item()
+            diff_k1 = (got.float() - split.float()).abs().max().item()
+            ms = time_ms(lambda: DCN_FWD_OM(x, om, wt, bias, 1))
+            fused_ms = time_ms(lambda: DCN_FWD_OM(
+                x, om_view.contiguous(), wt, bias, 1))
+            unfused_ms = time_ms(lambda: _unfused_route(
+                x, om_view, wt, bias, 1))
+            plain_ms = time_ms(lambda: deform_conv_om_plain(
+                x, om, wt, bias, 1), reps=5, warmup=1)
+            bound, bound_by = _om_bound_ms(cin, h, w, cout, dtype,
+                                           batch)
+            route, earlier = route_and_earlier_ms(
+                DCN_FWD_OM, (x, om, wt, bias, 1), cin, cout, dtype)
+            row = {"kernel": "dcn_fwd_om", "batch": batch,
+                   "cin": cin, "h": h, "w": w, "cout": cout,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "radius": 1, "per_group": n, "route": route,
+                   "cuda_core_ms": earlier,
+                   "max_abs_err": diff, "max_rel_err": diff / scale,
+                   "max_rel_err_vs_dcn_fwd": diff_k1 / scale,
+                   "ms": ms, "fused_route_ms": fused_ms,
+                   "unfused_route_ms": unfused_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by}
+            rows.append(row)
+            log(f"[fused] {json.dumps(row)}")
+            # one body, one sum order: dcn_fwd on the split
+            # operands gives the same bits
+            check(np.isfinite(diff) and
+                  row["max_rel_err"] <= TOLERANCE[dtype] and
+                  diff_k1 == 0.0,
+                  f"dcn_fwd_om disagrees: {row}")
     return {"rows": rows}
 
 
@@ -742,11 +830,18 @@ class _RecordingDetector:
     def __getattr__(self, name):
         return getattr(self._det, name)
 
+    def _counts(self):
+        counts = {k: v.launches for k, v in self._kernels.items()}
+        counts.update({f"{k}_tensor_core": v.tensor_core_launches
+                       for k, v in self._kernels.items()
+                       if hasattr(v, "tensor_core_launches")})
+        return counts
+
     def _counted(self, fn, *a, **kw):
-        before = {k: v.launches for k, v in self._kernels.items()}
+        before = self._counts()
         out = fn(*a, **kw)
         self.group_launches.append(
-            {k: v.launches - before[k] for k, v in self._kernels.items()})
+            {k: v - before[k] for k, v in self._counts().items()})
         return out
 
     def dispatch(self, pre, run_align=True):
@@ -795,17 +890,19 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
             return rec, results, steady, wall
 
         # the counted run: every count set to 0 just before, read just after
-        for kern in KERNELS.values():
-            kern.launches = 0
+        reset_counts(KERNELS)
         rec4, results4, _, _ = run(eval_batch, True)
         launches = {k: v.launches for k, v in KERNELS.items()}
+        tensor_core = KERNELS["dcn_fwd_om"].tensor_core_launches
         n_groups = -(-n_scenes // eval_batch)
         check(len(rec4.group_launches) == n_groups,
               f"{len(rec4.group_launches)} groups, expected {n_groups}")
         for i, g in enumerate(rec4.group_launches):
             check(g["dcn_fwd_om"] == 16 and g["dcn_fwd"] == 0 and
-                  g["dcn_bwd_dx"] == 0 and g["dcn_bwd_dcoord"] == 0,
-                  f"group {i} launched {g}, expected 16 dcn_fwd_om only")
+                  g["dcn_bwd_dx"] == 0 and g["dcn_bwd_dcoord"] == 0 and
+                  g["dcn_fwd_om_tensor_core"] == 16,
+                  f"group {i} launched {g}, expected 16 dcn_fwd_om only, "
+                  "all on the tensor-core route")
         check(sorted(results4) == list(range(n_scenes)),
               f"results for frames {sorted(results4)}")
         res_dir = save_kitti_results(results4, tmp, CLASS_NAMES)
@@ -830,7 +927,8 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
 
         # the same scenes frame by frame, unfused
         rec1, results1, _, _ = run(1, False)
-        check(all(g["dcn_fwd"] == 16 and g["dcn_fwd_om"] == 0
+        check(all(g["dcn_fwd"] == 16 and g["dcn_fwd_om"] == 0 and
+                  g["dcn_fwd_tensor_core"] == 16
                   for g in rec1.group_launches) and
               len(rec1.group_launches) == n_scenes,
               f"eval_batch 1 unfused launched {rec1.group_launches}")
@@ -887,13 +985,22 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
                      "device_busy_share", "by_kind_ms", "device")}
         log(f"[val] one group under torch.profiler (fused): "
             f"{json.dumps(profiles)}")
-    out.update(launches=launches, groups=n_groups, aps=aps, match=match,
+    out.update(launches=launches, groups=n_groups,
+               tensor_core_launches=tensor_core, aps=aps, match=match,
                times=times, profiles=profiles, detections=n_dets)
     return out
 
 
 def _per_unit(rows, key, count_key):
-    return sum(r[key] * r[count_key] for r in rows)
+    """Sum over the unit's launches: each shape's value times its count
+    (cases off the main path have count 0)."""
+    return sum(r[key] * r[count_key] for r in rows if r[count_key])
+
+
+def _routes(rows) -> dict:
+    """How many of the checked cases took each route."""
+    return {route: sum(r["route"] == route for r in rows)
+            for route in ("tensor", "cuda_core")}
 
 
 def _bound_by(rows, count_key):
@@ -940,6 +1047,12 @@ def main() -> int:
         "launches": main_path["launches"],
         "launches_path": "serving, 3 frames",
         "launches_training": train["launches"]["dcn_fwd"],
+        "tensor_core_launches": main_path["tensor_core_launches"],
+        "tensor_core_launches_training":
+            train["tensor_core_launches"]["dcn_fwd"],
+        "routes_checked": _routes(fwd_rows),
+        "cuda_core_ms": _per_unit(bf16, "cuda_core_ms", "per_frame"),
+        "regular_grid_ms": _per_unit(bf16, "regular_grid_ms", "per_frame"),
         "max_abs_err": max(r["max_abs_err"] for r in fwd_rows),
         "max_rel_err_bf16": max(r["max_rel_err"] for r in fwd_rows
                                 if r["dtype"] == "bfloat16"),
@@ -954,7 +1067,7 @@ def main() -> int:
         "conv2d_ref_ms": _per_unit(bf16, "conv2d_ref_ms", "per_frame"),
         "training_step": {
             key: _per_unit(fwd_step, key, "per_step")
-            for key in ("ms", "plain_ms", "bound_ms")},
+            for key in ("ms", "cuda_core_ms", "plain_ms", "bound_ms")},
         "checked_shapes": {
             path: len({(r["cin"], r["h"], r["w"], r["cout"]) for r in rows})
             for path, rows in (
@@ -975,6 +1088,11 @@ def main() -> int:
             "replaces": replaces,
             "launches": train["launches"][name],
             "launches_path": f"training, {train['steps']} steps",
+            "tensor_core_launches":
+                train["tensor_core_launches"].get(name, 0),
+            "routes_checked": _routes(rows),
+            "cuda_core_ms": (_per_unit(step, "cuda_core_ms", "per_step")
+                             if name == "dcn_bwd_dcoord" else None),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err_bf16": max(r["max_rel_err"] for r in rows
                                     if r["dtype"] == "bfloat16"),
@@ -995,6 +1113,9 @@ def main() -> int:
         "source": str(OM_LIB.source.relative_to(root)),
         "replaces": "side_tpu/ops/dcn_pallas.py:691",
         "launches": validation["launches"]["dcn_fwd_om"],
+        "tensor_core_launches": validation["tensor_core_launches"],
+        "routes_checked": _routes(fused["rows"]),
+        "cuda_core_ms": _per_unit(om_group, "cuda_core_ms", "per_group"),
         "launches_path": f"validation, {validation['groups']} groups of 4 "
                          "frames",
         "max_abs_err": max(r["max_abs_err"] for r in fused["rows"]),

@@ -30,33 +30,74 @@
 // bytes of tens of MB: K3 is bound by operations, K2 by operations except at the
 // 64-channel 96x320 layers, where the bytes of g and d_x weigh more.  In bf16 on
 // tensor cores the two together need ~0.73 ms per step (chip_smoke.py's bound).
-// This first design runs the products on CUDA cores in f32 (no mma/wgmma, no
-// TMA), and K2 scatters with f32 atomics.
 //
-// Design (256 threads, 64 pixels x 64 channels per tile, 4 x 4 micro-tiles):
-//   K2: one block per (64 pixels, 64 input channels).  The geometry of its 64 x 9
-//       (pixel, tap) samples goes to shared memory once; per tap it forms the
-//       64 x 64 tile of g·W_k^T from 32-wide chunks of g and W staged in shared
-//       memory, then adds m * w_q * gW into the four corners with atomicAdd into an
-//       f32 buffer (the wrapper casts it to x's dtype).
-//   K3: one launch, two kinds of block.  The first blocks each own one
-//       (tap, 64-channel, 64-output-channel) tile of d_W and a slice of the pixels:
-//       they recompute the column tile (rounded to x's dtype, as the forward),
-//       stage the matching g tile, accumulate col^T g in registers and add the
-//       partial sum to d_W with one f32 atomicAdd per element.  The other blocks
-//       each own (64 pixels, one tap): they form g·W_k^T for every 64-channel
-//       chunk, read the four corners, and reduce val·gW, dval/dy·gW and dval/dx·gW
-//       over the channels (registers, then warp shuffles): d_offset and d_mask are
-//       written once, without atomics.
+// K2 (256 threads, 64 pixels x 64 channels per tile, 4 x 4 f32 micro-tiles on
+// CUDA cores): one block per (64 pixels, 64 input channels).  The geometry of its
+// 64 x 9 (pixel, tap) samples goes to shared memory once; per tap it forms the
+// 64 x 64 tile of g·W_k^T from 32-wide chunks of g and W staged in shared memory,
+// then adds m * w_q * gW into the four corners with atomicAdd into an f32 buffer
+// (the wrapper casts it to x's dtype).
+//
+// K3 has two routes, picked from dtype and shape alone (ops/dcn_cuda.py:
+// dcn_route).
+//   Route 1, tensor cores (bf16 x and g, Cin % 64 == 0, Cout in {64, 128, 256}:
+//   every DeformBlock of the model).  What bounded the CUDA-core design was the
+//   f32 FMA rate for both products (15 times under the tensor cores') and the
+//   corners, gathered Cout/64 + 1 times with 2-byte loads.  Here one kind of
+//   block owns (tap k, 64 input channels, a slice of the 64-pixel tiles):
+//     * W_k's 64 x Cout rows go to shared memory once a block, rounded to bf16;
+//     * per pixel tile the g tile (64 x Cout bf16) is staged once and feeds both
+//       products: gW = g·W_k^T (M = pixels, N = 64 channels, K = Cout) and
+//       d_W += col^T·g (M = 64 channels, N = Cout, K = pixels; the transposed
+//       operands through ldmatrix.trans), both mma.sync bf16 with f32
+//       accumulators (dcn_mma.cuh); the d_W accumulators (64 x Cout f32) stay in
+//       registers over the whole slice and are added to d_W with one atomicAdd
+//       per element at the end;
+//     * the four corners of each (pixel, channel) are gathered once, 16 bytes a
+//       thread, eight threads on one pixel's 128-byte line; from them the thread
+//       forms the column value (rounded to bf16 as the forward rounds it, for
+//       d_W) and val, dval/dy, dval/dx, which it multiplies with its gW values
+//       (through shared memory) and reduces over its channels: shuffles over the
+//       eight threads of a pixel, then per (pixel, tap) one value of d_mask
+//       and the pair of d_offset.  At Cin = 64 one block holds the whole sum and
+//       writes it; at Cin > 64 the Cin/64 blocks of a pixel add theirs with f32
+//       atomics (one scalar, one float2), so the wrapper hands the two outputs
+//       in zeroed then.  Atomics and not a second pass: at most 8 partial sums
+//       meet per value, and the second pass would write and read Cin/64 copies
+//       of d_offset and d_mask;
+//     * the corner loads are started before the gW product (Cout <= 128, where
+//       the d_W accumulators leave registers for them): the phases of a tile
+//       are separated by barriers, and memory latency paid inside a phase is
+//       paid by the whole block.
+//   What bounds it now is not the products but the per-sample f32 arithmetic of
+//   step 3 (val, two derivatives and the column value per corner quadruple, ~30
+//   operations a channel) and the latency between the four barriers of a tile.
+//   The order of those atomics changes from run to run: d_offset and d_mask move
+//   in their last f32 bits where Cin > 64 (d_W did before and does now).
+//   Its one new rounding is W's, f32 to bf16, inside gW; col and g are bf16 on
+//   both routes already.
+//   Route 0, CUDA cores (f32, and bf16 at any other width): one launch, two kinds
+//   of block.  The first blocks each own one (tap, 64-channel, 64-output-channel)
+//   tile of d_W and a slice of the pixels: they recompute the column tile
+//   (rounded to x's dtype, as the forward), stage the matching g tile, accumulate
+//   col^T g in registers and add the partial sum to d_W with one f32 atomicAdd
+//   per element.  The other blocks each own (64 pixels, one tap): they form
+//   g·W_k^T for every 64-channel chunk, read the four corners, and reduce val·gW,
+//   dval/dy·gW and dval/dx·gW over the channels (registers, then warp shuffles):
+//   d_offset and d_mask are written once, without atomics.
 //
 // Tolerance against autograd of the plain version (ops/deform_conv.py:
 // deform_conv_plain) on the same inputs, max |diff| / max |plain| per cotangent:
 // 1e-4 in f32 (sums in another order, atomics in no fixed order) and 2e-2 in bf16
 // (the plain version rounds the column gradient and d_x to bf16 where these
-// kernels keep f32).  chip_smoke.py and tests/test_torch_cuda.py assert both.
+// kernels keep f32; route 1 of K3 rounds W to bf16, 2^-9 relative per term, far
+// inside that: 2.3e-3 .. 3.0e-3 measured over the model's shapes on an H100).
+// chip_smoke.py and tests/test_torch_cuda.py assert both.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "dcn_mma.cuh"
 
 namespace {
 
@@ -84,18 +125,16 @@ struct Sample {
   float fy, fx, m, pass_y, pass_x;
 };
 
-__device__ __forceinline__ Sample sample_at(const float* __restrict__ off,
-                                            const float* __restrict__ mask, int p, int k,
-                                            int H, int W, int C, int R) {
+// from the raw offset (rdy, rdx) and mask m of (pixel p, tap k)
+__device__ __forceinline__ Sample sample_from(float rdy, float rdx, float m, int p, int k,
+                                              int H, int W, int C, int R) {
   Sample s;
   const int HW = H * W;
   const int b = p / HW;
   const int rem = p - b * HW;
   const int y = rem / W;
   const int xq = rem - y * W;
-  const float rdy = off[(size_t)p * 18 + 2 * k];
-  const float rdx = off[(size_t)p * 18 + 2 * k + 1];
-  s.m = mask[(size_t)p * kTaps + k];
+  s.m = m;
   const int ky = y + k / 3 - 1;
   const int kx = xq + k % 3 - 1;
   int y0, x0;
@@ -130,6 +169,13 @@ __device__ __forceinline__ Sample sample_at(const float* __restrict__ off,
     s.idx[q] = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? ((b * H + yy) * W + xx) * C : -1;
   }
   return s;
+}
+
+__device__ __forceinline__ Sample sample_at(const float* __restrict__ off,
+                                            const float* __restrict__ mask, int p, int k,
+                                            int H, int W, int C, int R) {
+  return sample_from(off[(size_t)p * 18 + 2 * k], off[(size_t)p * 18 + 2 * k + 1],
+                     mask[(size_t)p * kTaps + k], p, k, H, W, C, R);
 }
 
 __device__ __forceinline__ void corner_weights(float fy, float fx, float cw[4]) {
@@ -248,7 +294,7 @@ dcn_bwd_dx_kernel(const T* __restrict__ g, const float* __restrict__ off,
   }
 }
 
-// ------------------------------------------------ K3: d_offset, d_mask, d_weight
+// ----------------------- K3, CUDA-core route: d_offset, d_mask, d_weight
 struct CoordSmem {
   int idx[kTilePix][4];
   float fy[kTilePix], fx[kTilePix], m[kTilePix], pass_y[kTilePix], pass_x[kTilePix];
@@ -470,6 +516,322 @@ dcn_bwd_dcoord_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+
+// ------------------------------- K3, tensor-core route (see the file's header)
+constexpr int kGwStride = 72;   // f32 per row of the gW tile: 64 + 8, conflict-free
+
+// dynamic shared memory of one block: W_k rows and the g tile (64 x BN bf16
+// each), the column tile (64 x 64 bf16), gW (64 x 72 f32), the tile's geometry
+constexpr int dcoord_mma_smem_bytes(int bn) {
+  return 2 * 64 * bn * 2 + 64 * 128 + 64 * kGwStride * 4 + 64 * (16 + 5 * 4);
+}
+
+// x (P, C) bf16, g (P, BN) bf16, w (9, C, BN) f32; dw f32, zeroed; doff, dmask
+// f32, zeroed when C > 64 (at C == 64 they are written, not added to).
+// Block t: combo = t % (9 * C/64) -> (tap k, channel tile c0); slice = t / combos
+// -> a contiguous range of 64-pixel tiles.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                          const float* __restrict__ off, const float* __restrict__ mask,
+                          const float* __restrict__ w, float* __restrict__ doff,
+                          float* __restrict__ dmask, float* __restrict__ dw, int B, int H, int W,
+                          int C, int R, int slices) {
+  using namespace dcn_mma;
+  constexpr int WN = BN / 4;        // d_W warp tile: 32 channels x WN outputs
+  constexpr int NI = WN / 8;
+  constexpr int kRowBytes = BN * 2;
+  constexpr int kGroups = BN / 8;
+  constexpr bool kEarlyCorners = BN <= 128;
+
+  extern __shared__ uint4 dcn_dyn_smem[];
+  unsigned char* sW = reinterpret_cast<unsigned char*>(dcn_dyn_smem);   // [c][o]
+  unsigned char* sG = sW + 64 * kRowBytes;                              // [p][o]
+  unsigned char* sCol = sG + 64 * kRowBytes;                            // [p][c]
+  float* sGW = reinterpret_cast<float*>(sCol + 64 * 128);               // [p][c], stride 72
+  int4* s_idx = reinterpret_cast<int4*>(sGW + 64 * kGwStride);
+  float* s_geo = reinterpret_cast<float*>(s_idx + 64);   // fy, fx, m, pass_y, pass_x: [5][64]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int P = B * H * W;
+  const int combos = kTaps * (C / 64);
+  const int combo = blockIdx.x % combos;
+  const int slice = blockIdx.x / combos;
+  const int k = combo % kTaps;
+  const int c0 = (combo / kTaps) * 64;
+  const int n_pt = (P + 63) / 64;
+  const int per = (n_pt + slices - 1) / slices;
+  const int pt_begin = slice * per;
+  const int pt_end = min(n_pt, pt_begin + per);
+
+  // W_k[c0 .. c0 + 64, :] as bf16, once (read after the loop's first barriers)
+  stage_weight_rows<BN>(w, k * C + c0, sW);
+
+  const int wm = warp & 1;       // both products: 2 warps along M, 4 along N
+  const int wn = warp >> 1;
+  float acc_w[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc_w[mi][ni][r] = 0.f;
+
+  const uint32_t w_base = smem_addr(sW);
+  const uint32_t g_base = smem_addr(sG);
+  const uint32_t col_base = smem_addr(sCol);
+
+  // The g tile and the raw geometry of a pixel tile go through registers, so
+  // that their loads are in flight together and across the barrier.
+  constexpr int kGItems = (64 * kGroups) / kThreads;
+  uint4 g_regs[kGItems];
+  float raw_dy = 0.f, raw_dx = 0.f, raw_m = 0.f;
+  auto load_tile = [&](int pt) {
+    const int p0 = pt * 64;
+#pragma unroll
+    for (int i = 0; i < kGItems; ++i) {
+      const int item = tid + kThreads * i;
+      const int lp = item / kGroups;
+      const int gq = item - lp * kGroups;
+      g_regs[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (p0 + lp < P)
+        g_regs[i] = __ldg(reinterpret_cast<const uint4*>(g + (size_t)(p0 + lp) * BN + gq * 8));
+    }
+    if (tid < 64 && p0 + tid < P) {
+      const size_t e = (size_t)(p0 + tid) * kTaps + k;
+      raw_dy = off[2 * e];
+      raw_dx = off[2 * e + 1];
+      raw_m = mask[e];
+    }
+  };
+  // d_offset and d_mask of a (pixel, tap) sum over the C / 64 channel tiles:
+  // one tile writes them, more add them
+  const bool one_ctile = C == 64;
+
+  for (int pt = pt_begin; pt < pt_end; ++pt) {
+    const int p0 = pt * 64;
+    load_tile(pt);
+    __syncthreads();   // the previous tile's d_W product has read sG and sCol
+    // 1. the g tile, and the geometry of (pixel, tap k)
+#pragma unroll
+    for (int i = 0; i < kGItems; ++i) {
+      const int item = tid + kThreads * i;
+      const int lp = item / kGroups;
+      *reinterpret_cast<uint4*>(sG + swz(lp, item - lp * kGroups, kRowBytes)) = g_regs[i];
+    }
+    if (tid < 64) {
+      const int p = p0 + tid;
+      int4 id = make_int4(-1, -1, -1, -1);
+      float fy = 0.f, fx = 0.f, m = 0.f, py = 0.f, px = 0.f;
+      if (p < P) {
+        const Sample sp = sample_from(raw_dy, raw_dx, raw_m, p, k, H, W, C, R);
+        id = make_int4(sp.idx[0], sp.idx[1], sp.idx[2], sp.idx[3]);
+        fy = sp.fy; fx = sp.fx; m = sp.m; py = sp.pass_y; px = sp.pass_x;
+      }
+      s_idx[tid] = id;
+      s_geo[tid] = fy;
+      s_geo[64 + tid] = fx;
+      s_geo[128 + tid] = m;
+      s_geo[192 + tid] = py;
+      s_geo[256 + tid] = px;
+    }
+    __syncthreads();
+
+    // The corners, gathered once.  The 8 loads of a thread's two (pixel, 8-channel
+    // group) items are started together, each from a valid address (a corner
+    // outside the image reads pixel 0 and is zeroed); where the d_W accumulators
+    // leave registers for it they are started before the gW product, which hides
+    // their latency.
+    uint32_t raws[2][4][4];   // item, corner q, channel pair jj: two bf16
+    auto load_corners = [&]() {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int4 id = s_idx[(tid >> 3) + 32 * i];
+        const int ids[4] = {id.x, id.y, id.z, id.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint4 t = __ldg(reinterpret_cast<const uint4*>(x + (size_t)max(ids[q], 0) + c0 +
+                                                         (tid & 7) * 8));
+          if (ids[q] < 0) t = make_uint4(0u, 0u, 0u, 0u);
+          raws[i][q][0] = t.x; raws[i][q][1] = t.y; raws[i][q][2] = t.z; raws[i][q][3] = t.w;
+        }
+      }
+    };
+    if (kEarlyCorners) load_corners();
+
+    // 2. gW[p, c] = sum_o g[p, o] * W_k[c, o]: warp tile 32 pixels x 16 channels
+    {
+      float acc_g[2][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc_g[mi][ni][r] = 0.f;
+#pragma unroll 4
+      for (int ks = 0; ks < BN / 16; ++ks) {
+        uint32_t af[2][4], bf[4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int row = wm * 32 + mi * 16 + (lane & 15);
+          ldmatrix_x4(af[mi], g_base + swz(row, ks * 2 + (lane >> 4), kRowBytes));
+        }
+        // W_k is stored [n = c][k = o]: tiles (n 0-7, k 0-7), (n 0-7, k 8-15),
+        // (n 8-15, k 0-7), (n 8-15, k 8-15), no transpose
+        const int nrow = wn * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(bf, w_base + swz(nrow, ks * 2 + ((lane >> 3) & 1), kRowBytes));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc_g[mi][0], af[mi], bf[0], bf[1]);
+          mma_bf16(acc_g[mi][1], af[mi], bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) {
+            const int col = wn * 16 + ni * 8 + (lane & 3) * 2;
+            // columns 32..63 swap their halves of 4: the readers' float4 loads
+            // of channel groups g and g + 4 then miss each other's banks
+            *reinterpret_cast<float2*>(sGW + row * kGwStride + (col ^ ((col >> 3) & 4))) =
+                make_float2(acc_g[mi][ni][2 * half], acc_g[mi][ni][2 * half + 1]);
+          }
+        }
+    }
+    __syncthreads();
+
+    // 3. the corner values meet gW: the column tile for d_W, d_mask, d_offset
+    if (!kEarlyCorners) load_corners();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lp = (tid >> 3) + 32 * i;
+      const int cg = tid & 7;
+      const int4 id = s_idx[lp];
+      const float fy = s_geo[lp], fx = s_geo[64 + lp], m = s_geo[128 + lp];
+      const int ids[4] = {id.x, id.y, id.z, id.w};
+      const uint32_t (&raw)[4][4] = raws[i];
+      float cw[4];
+      corner_weights(fy, fx, cw);
+      const float* gw_row = sGW + lp * kGwStride + cg * 8;
+      const int swap4 = (cg >> 2) << 2;
+      const float4 gw_lo = *reinterpret_cast<const float4*>(gw_row + swap4);
+      const float4 gw_hi = *reinterpret_cast<const float4*>(gw_row + (swap4 ^ 4));
+      const float gws[8] = {gw_lo.x, gw_lo.y, gw_lo.z, gw_lo.w,
+                            gw_hi.x, gw_hi.y, gw_hi.z, gw_hi.w};
+      float s_val = 0.f, s_dy = 0.f, s_dx = 0.f;
+      uint32_t packed[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float colv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = h == 0 ? bf16_lo(raw[q][jj]) : bf16_hi(raw[q][jj]);
+          // the forward's column value: corners outside the image are skipped
+          float cv = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (ids[q] >= 0) cv += v[q] * cw[q];
+          colv[h] = cv * m;
+          const float val = (1.f - fy) * ((1.f - fx) * v[0] + fx * v[1]) +
+                            fy * ((1.f - fx) * v[2] + fx * v[3]);
+          const float dvy = (1.f - fx) * (v[2] - v[0]) + fx * (v[3] - v[1]);
+          const float dvx = (1.f - fy) * (v[1] - v[0]) + fy * (v[3] - v[2]);
+          const float gwj = gws[2 * jj + h];
+          s_val = fmaf(val, gwj, s_val);
+          s_dy = fmaf(dvy, gwj, s_dy);
+          s_dx = fmaf(dvx, gwj, s_dx);
+        }
+        packed[jj] = pack_bf16(colv[0], colv[1]);   // rounds to bf16
+      }
+      *reinterpret_cast<uint4*>(sCol + swz(lp, cg, 128)) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      // the eight threads of one pixel are neighbours in a warp
+#pragma unroll
+      for (int sh = 4; sh > 0; sh >>= 1) {
+        s_val += __shfl_xor_sync(0xffffffffu, s_val, sh);
+        s_dy += __shfl_xor_sync(0xffffffffu, s_dy, sh);
+        s_dx += __shfl_xor_sync(0xffffffffu, s_dx, sh);
+      }
+      if (cg == 0 && p0 + lp < P) {
+        const size_t e = (size_t)(p0 + lp) * kTaps + k;
+        const float2 d_yx = make_float2(m * s_dy * s_geo[192 + lp], m * s_dx * s_geo[256 + lp]);
+        if (one_ctile) {
+          dmask[e] = s_val;
+          *reinterpret_cast<float2*>(doff + 2 * e) = d_yx;
+        } else {
+          atomicAdd(dmask + e, s_val);
+          atomicAdd(reinterpret_cast<float2*>(doff + 2 * e), d_yx);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. d_W[c, o] += sum_p col[p, c] * g[p, o]: warp tile 32 channels x WN outputs
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        // col is stored [k = p][m = c]: tiles (p 0-7, c 0-7), (p 0-7, c 8-15),
+        // (p 8-15, c 0-7), (p 8-15, c 8-15), each transposed
+        const int prow = ks * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4_trans(af[mi], col_base + swz(prow, (wm * 32 + mi * 16) / 8 + ((lane >> 3) & 1), 128));
+      }
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj) {
+        uint32_t bf[4];
+        const int prow = ks * 16 + (lane & 15);
+        ldmatrix_x4_trans(bf, g_base + swz(prow, (wn * WN + nj * 16) / 8 + (lane >> 4), kRowBytes));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc_w[mi][2 * nj], af[mi], bf[0], bf[1]);
+          mma_bf16(acc_w[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // 5. this slice's share of d_W[k, c0 .. c0 + 64, :]
+  if (pt_begin < pt_end) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = c0 + wm * 32 + mi * 16 + (lane >> 2) + 8 * half;
+        float* row = dw + ((size_t)k * C + c) * BN;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int o = wn * WN + ni * 8 + (lane & 3) * 2;
+          atomicAdd(row + o, acc_w[mi][ni][2 * half]);
+          atomicAdd(row + o + 1, acc_w[mi][ni][2 * half + 1]);
+        }
+      }
+  }
+}
+
+template <int BN>
+int launch_dcoord_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* off,
+                      const float* mask, const float* w, float* doff, float* dmask, float* dw,
+                      int B, int H, int W, int C, int R, int slices, int smem_bytes,
+                      cudaStream_t s) {
+  constexpr int kSmem = dcoord_mma_smem_bytes(BN);
+  if (smem_bytes != kSmem) return (int)cudaErrorInvalidValue;   // the caller's plan is another's
+  auto kernel = dcn_bwd_dcoord_mma_kernel<BN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(kTaps * (C / 64) * slices);
+  kernel<<<blocks, kThreads, kSmem, s>>>(x, g, off, mask, w, doff, dmask, dw, B, H, W, C, R, slices);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -498,13 +860,43 @@ int dcn_bwd_dx_launch(const void* g, const void* off, const void* mask, const vo
   return (int)cudaGetLastError();
 }
 
-// K3.  doff (B, H, W, 9, 2) f32 and dmask (B, H, W, 9) f32 are written in full;
-// dw (3, 3, C, Cout) f32 must be zero.
+// K3.  route 0 (CUDA cores): doff (B, H, W, 9, 2) f32 and dmask (B, H, W, 9) f32
+// are written in full and dw (3, 3, C, Cout) f32 must be zero.  route 1 (tensor
+// cores, bf16 only; `slices` and `smem_bytes` from ops/dcn_cuda.py:dcoord_plan):
+// dw must be zero, and doff and dmask too when C > 64 (at C == 64 they are
+// written in full).
 int dcn_bwd_dcoord_launch(const void* x, const void* g, const void* off, const void* mask,
                           const void* w, void* doff, void* dmask, void* dw, int B, int H, int W,
-                          int C, int Cout, int radius, int dtype, void* stream) {
+                          int C, int Cout, int radius, int dtype, int route, int slices,
+                          int smem_bytes, void* stream) {
   const long long P = (long long)B * H * W;
   const long long n_pt = (P + kTilePix - 1) / kTilePix;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || C <= 0 || C % 64 != 0 || slices < 1 || slices > n_pt)
+      return (int)cudaErrorInvalidValue;
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+    const float* of = static_cast<const float*>(off);
+    const float* mf = static_cast<const float*>(mask);
+    const float* wf = static_cast<const float*>(w);
+    float* d1 = static_cast<float*>(doff);
+    float* d2 = static_cast<float*>(dmask);
+    float* d3 = static_cast<float*>(dw);
+    switch (Cout) {
+      case 64:
+        return launch_dcoord_mma<64>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
+                                     smem_bytes, s);
+      case 128:
+        return launch_dcoord_mma<128>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
+                                      smem_bytes, s);
+      case 256:
+        return launch_dcoord_mma<256>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
+                                      smem_bytes, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   const long long tiles =
       (long long)kTaps * ((C + kTileC - 1) / kTileC) * ((Cout + kTileC - 1) / kTileC);
   long long splits = (kWeightBlocks + tiles - 1) / tiles;
@@ -512,7 +904,6 @@ int dcn_bwd_dcoord_launch(const void* x, const void* g, const void* off, const v
   if (splits < 1) splits = 1;
   const long long n_weight = tiles * splits;
   const long long blocks = n_weight + n_pt * kTaps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dcn_bwd_dcoord_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),

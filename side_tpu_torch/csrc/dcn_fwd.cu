@@ -16,32 +16,29 @@
 // DeformBlocks of one stereo frame = 2 images): 2 * sum H*W*9*Cin*Cout*2 =
 // 53.2 GFLOP, while the bytes that must move (inputs once, output once) are
 // tens of MB.  On tensor cores that is compute-bound: 53.2e9 / 989e12 = 54 us
-// per frame in bf16.  This first design runs the contraction on CUDA cores in
-// f32 (no mma/wgmma, no TMA, no pipelining), so its own ceiling is the f32
-// FMA rate, 67 TFLOP/s.
+// per frame in bf16.
 //
-// Design: one block of 256 threads owns 64 output pixels x 64 output channels.
-//   1. It computes the 4 corner offsets, the 4 bilinear weights and the mask of
-//      each of its 64 x 9 (pixel, tap) pairs once, into shared memory.
-//   2. For each tap and each chunk of 32 input channels it samples the 64 x 32
-//      column tile into shared memory (a warp reads 32 neighbouring channels of
-//      one corner: coalesced) and stages the matching 32 x 64 weight rows.
-//   3. Each thread accumulates a 4 x 4 micro-tile in f32 registers.
-//   4. Bias is added and the tile is stored in x's dtype.
-//
-// The kernel body lives in dcn_fwd_body.cuh (shared with dcn_fwd_om.cu, which
-// reads the raw offset/mask conv output instead of split operands).
+// Two routes, picked from dtype and shape alone (ops/dcn_cuda.py:dcn_route);
+// both bodies, their design and the numerics are in dcn_fwd_body.cuh, shared
+// with dcn_fwd_om.cu (which reads the raw offset/mask conv output instead of
+// split operands):
+//   route 1, tensor cores: bf16 x, Cin % 64 == 0, Cout in {64, 128, 256}.
+//       wgmma bf16 with f32 accumulators; one block owns a pixel tile and all
+//       of Cout, samples each column value once with 16-byte loads, two stages
+//       in dynamic shared memory; small layers split the reduction.
+//   route 0, CUDA cores: f32 x and every other bf16 width.  One block of 256
+//       threads owns 64 output pixels x 64 output channels and accumulates 4 x 4
+//       micro-tiles with f32 FMA; its ceiling is the 67 TFLOP/s f32 rate.
 //
 // Tolerance against the plain version (ops/deform_conv.py:deform_conv_plain,
 // same column rounding): max |diff| <= 1e-5 of the output's max in f32 (the
-// 9*Cin-term sums are taken in another order) and 8e-3 in bf16 (that, plus
-// the output's rounding to bf16: two ulps).  chip_smoke.py asserts both.
+// 9*Cin-term sums are taken in another order) and 8e-3 in bf16 (sum order, on
+// route 1 the weight's rounding to bf16, and the output's rounding: at most one
+// bf16 ulp of the largest value, 2^-7).  chip_smoke.py asserts both.
 
 #include "dcn_fwd_body.cuh"
 
-using namespace dcn;
-
-namespace {
+namespace dcn {
 
 // off: (B, H, W, 9, 2) f32 as (dy, dx); mask: (B, H, W, 9) f32
 struct SplitGeom {
@@ -55,41 +52,36 @@ struct SplitGeom {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ off,
-               const float* __restrict__ mask, const float* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ out,
-               int B, int H, int W, int C, int Cout, int R) {
-  dcn_fwd_tile<T>(x, SplitGeom{off, mask}, w, bias, out, B, H, W, C, Cout, R);
-}
+}  // namespace dcn
 
-}  // namespace
+using namespace dcn;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out).  Launches on `stream` and
-// returns cudaGetLastError() as an int (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (x and out).  route: 0 = CUDA cores, 1 =
+// tensor cores (bf16 only; `splits`, `smem_bytes` and the scratch `part` of
+// splits * P * Cout f32 come from ops/dcn_cuda.py:fwd_plan and are unused on
+// route 0).  Launches on `stream` and returns cudaGetLastError() as an int
+// (0 = launched).
 int dcn_fwd_launch(const void* x, const void* off, const void* mask, const void* w,
-                   const void* bias, void* out, int B, int H, int W, int C, int Cout,
-                   int radius, int dtype, void* stream) {
-  const long long P = (long long)B * H * W;
-  const dim3 grid((unsigned)((P + kTilePix - 1) / kTilePix),
-                  (unsigned)((Cout + kTileOut - 1) / kTileOut));
+                   const void* bias, void* out, void* part, int B, int H, int W, int C,
+                   int Cout, int radius, int dtype, int route, int splits, int smem_bytes,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dcn_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(off),
-        static_cast<const float*>(mask), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, C, Cout, radius);
-  } else {
-    dcn_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(off),
-        static_cast<const float*>(mask), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout,
-        radius);
+  const SplitGeom geom{static_cast<const float*>(off), static_cast<const float*>(mask)};
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_fwd_mma(static_cast<const __nv_bfloat16*>(x), geom, wf, bf,
+                          static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), B, H, W,
+                          C, Cout, radius, splits, smem_bytes, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_fwd_cuda_core(static_cast<const float*>(x), geom, wf, bf,
+                                static_cast<float*>(out), B, H, W, C, Cout, radius, s);
+  return launch_fwd_cuda_core(static_cast<const __nv_bfloat16*>(x), geom, wf, bf,
+                              static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout, radius, s);
 }
 
 const char* dcn_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -18,8 +18,10 @@
 //
 // Bound: K1's operations (2 * B*H*W * 9*Cin * Cout, on tensor cores
 // compute-bound at every model shape) against bytes with `om` at 27 values of
-// x's dtype per pixel.  The body is dcn_fwd.cu's (dcn_fwd_body.cuh): f32 FMA
-// on CUDA cores, so its own ceiling is the 67 TFLOP/s f32 rate.
+// x's dtype per pixel.  The bodies are dcn_fwd.cu's (dcn_fwd_body.cuh): route 1
+// on the tensor cores for bf16 at the model's widths, route 0 on CUDA cores
+// (f32 FMA, ceiling 67 TFLOP/s) for f32 and every other width.  On either route
+// this kernel and dcn_fwd fed the split operands give the same bits.
 //
 // NaN: a NaN dy or dx is clamped to -R (fmaxf returns its non-NaN operand), as
 // in dcn_fwd.cu.  A NaN mask logit gives a NaN mask, and every output channel
@@ -27,13 +29,11 @@
 //
 // Tolerance against the plain version (ops/deform_conv.py:
 // deform_conv_om_plain): as dcn_fwd.cu, 1e-5 of the output's max in f32 and
-// 8e-3 in bf16.
+// 8e-3 in bf16 (on route 1 that includes the weight's rounding to bf16).
 
 #include "dcn_fwd_body.cuh"
 
-using namespace dcn;
-
-namespace {
+namespace dcn {
 
 // om: (B, H, W, 27) in x's dtype, per tap [dy, dx, mask logit]
 template <typename T>
@@ -48,39 +48,34 @@ struct OmGeom {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dcn_fwd_om_kernel(const T* __restrict__ x, const T* __restrict__ om,
-                  const float* __restrict__ w, const float* __restrict__ bias,
-                  T* __restrict__ out, int B, int H, int W, int C, int Cout, int R) {
-  dcn_fwd_tile<T>(x, OmGeom<T>{om}, w, bias, out, B, H, W, C, Cout, R);
-}
+}  // namespace dcn
 
-}  // namespace
+using namespace dcn;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, om and out).  radius >= 0.  Launches on
-// `stream` and returns cudaGetLastError() as an int (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (x, om and out).  radius >= 0.  route,
+// splits, smem_bytes and part as dcn_fwd_launch.  Launches on `stream` and
+// returns cudaGetLastError() as an int (0 = launched).
 int dcn_fwd_om_launch(const void* x, const void* om, const void* w, const void* bias,
-                      void* out, int B, int H, int W, int C, int Cout, int radius,
-                      int dtype, void* stream) {
-  const long long P = (long long)B * H * W;
-  const dim3 grid((unsigned)((P + kTilePix - 1) / kTilePix),
-                  (unsigned)((Cout + kTileOut - 1) / kTileOut));
+                      void* out, void* part, int B, int H, int W, int C, int Cout, int radius,
+                      int dtype, int route, int splits, int smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
   if (dtype == 0) {
-    dcn_fwd_om_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(om),
-        static_cast<const float*>(w), static_cast<const float*>(bias),
-        static_cast<float*>(out), B, H, W, C, Cout, radius);
-  } else {
-    dcn_fwd_om_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(om),
-        static_cast<const float*>(w), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout, radius);
+    if (route == 1) return (int)cudaErrorInvalidValue;
+    return launch_fwd_cuda_core(static_cast<const float*>(x),
+                                OmGeom<float>{static_cast<const float*>(om)}, wf, bf,
+                                static_cast<float*>(out), B, H, W, C, Cout, radius, s);
   }
-  return (int)cudaGetLastError();
+  const OmGeom<__nv_bfloat16> geom{static_cast<const __nv_bfloat16*>(om)};
+  if (route == 1)
+    return launch_fwd_mma(static_cast<const __nv_bfloat16*>(x), geom, wf, bf,
+                          static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), B, H, W,
+                          C, Cout, radius, splits, smem_bytes, s);
+  return launch_fwd_cuda_core(static_cast<const __nv_bfloat16*>(x), geom, wf, bf,
+                              static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout, radius, s);
 }
 
 const char* dcn_om_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

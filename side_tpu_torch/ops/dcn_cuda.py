@@ -11,6 +11,15 @@
         offset/mask conv output.  It shares its body with `dcn_fwd` through
         csrc/dcn_fwd_body.cuh.
 
+The forward body (K1 and K4) and K3 each have two routes, and `dcn_route`
+picks one from the dtype and the widths alone: "tensor" (bf16 products on
+the tensor cores, wgmma in the forward and mma.sync in K3: bf16 operands,
+Cin a multiple of 64, Cout 64, 128 or 256, which covers every DeformBlock
+of the model) or "cuda_core" (f32 FMA: f32 operands and every other
+width).  `fwd_plan` and `dcoord_plan` size the
+tensor-core launches (tiles, splits of the reduction, dynamic shared
+memory); the C launchers follow them.  K2 runs on CUDA cores only.
+
 Each source is compiled with nvcc into a shared library with a plain C
 interface at first use, under `side_tpu_torch/_build/` (git-ignored), and
 loaded with ctypes; `build_all()` compiles every source at once.  Nothing is
@@ -21,8 +30,11 @@ imported or built when this module is imported.
 `DCN_BWD_DCOORD(x, g, offset, mask, weight, radius)` and
 `DCN_FWD_OM(x, om, weight, bias, radius)` launch their kernel on
 PyTorch's current stream for CUDA tensors and raise on anything they cannot
-take; they never fall back to the plain version.  Each counts its launches
-in `.launches`.
+take; they never fall back to the plain version, and a build or launch
+error never changes the route.  Each counts its launches in `.launches`,
+and the three with a tensor-core route count those that took it in
+`.tensor_core_launches`.  Their `cuda_core=True` argument is the test entry
+that times the CUDA-core body on operands the tensor-core route would take.
 """
 
 from __future__ import annotations
@@ -124,17 +136,86 @@ class CudaLibrary:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
+_MMA_HEADERS = ("dcn_mma.cuh",)
 FWD_LIB = CudaLibrary("dcn_fwd", {
-    "dcn_fwd_launch": [_VP] * 6 + [_CI] * 7 + [_VP]}, "dcn_error_string",
-    headers=("dcn_fwd_body.cuh",))
+    "dcn_fwd_launch": [_VP] * 7 + [_CI] * 10 + [_VP]}, "dcn_error_string",
+    headers=("dcn_fwd_body.cuh", *_MMA_HEADERS))
 BWD_LIB = CudaLibrary("dcn_bwd", {
     "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 7 + [_VP],
-    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 7 + [_VP]},
-    "dcn_bwd_error_string")
+    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 10 + [_VP]},
+    "dcn_bwd_error_string", headers=_MMA_HEADERS)
 OM_LIB = CudaLibrary("dcn_fwd_om", {
-    "dcn_fwd_om_launch": [_VP] * 5 + [_CI] * 7 + [_VP]},
-    "dcn_om_error_string", headers=("dcn_fwd_body.cuh",))
+    "dcn_fwd_om_launch": [_VP] * 6 + [_CI] * 10 + [_VP]},
+    "dcn_om_error_string", headers=("dcn_fwd_body.cuh", *_MMA_HEADERS))
 LIBRARIES = (FWD_LIB, BWD_LIB, OM_LIB)
+
+# ---------------------------------------------------------------- the routes
+SM_COUNT = 132                 # H100 SXM
+SMEM_PER_BLOCK = 232_448       # most dynamic shared memory of one block
+SMEM_PER_SM = 233_472          # 228 KB, each resident block reserving 1 KB
+TENSOR_CORE_COUT = (64, 128, 256)
+_ROUTE_CODE = {"cuda_core": 0, "tensor": 1}
+
+
+def dcn_route(dtype: torch.dtype, C: int, Cout: int) -> str:
+    """Which body the forward (K1, K4) and K3 run: "tensor" for bf16 with
+    Cin a multiple of 64 (the staged chunk) and Cout 64, 128 or 256 (one
+    block owns all of Cout), else "cuda_core".  Dtype and widths only."""
+    if (dtype == torch.bfloat16 and C > 0 and C % 64 == 0
+            and Cout in TENSOR_CORE_COUT):
+        return "tensor"
+    return "cuda_core"
+
+
+def _blocks_per_sm(smem_bytes: int) -> int:
+    """Resident blocks of 256 threads at <= 128 registers a thread (the
+    kernels' launch bounds): two unless shared memory allows only one."""
+    return max(1, min(2, SMEM_PER_SM // (smem_bytes + 1024)))
+
+
+def fwd_plan(B: int, H: int, W: int, C: int, Cout: int) -> dict:
+    """Launch plan of the tensor-core forward body (csrc/dcn_fwd_body.cuh):
+    the pixel tile, a patch of one image `tile_h` x 16 pixels (bm = 64
+    pixels at Cout 256, else 128; the block owns all of Cout), `splits` of
+    the 9 * C/64 (chunk, tap) list, the dynamic shared memory and the grid.
+    Where the pixel tiles alone do not give every SM a block, the reduction
+    is split until they do (or it cannot be split further); the partial
+    sums go through an f32 scratch of `scratch_floats` values and a second
+    kernel."""
+    bm = 64 if Cout == 256 else 128
+    tile_h, tile_w = bm // 16, 16
+    tiles = B * -(-H // tile_h) * -(-W // tile_w)
+    n_iter = 9 * (C // 64)
+    splits = 1
+    if tiles < SM_COUNT:
+        splits = min(n_iter, -(-SM_COUNT // tiles))
+        # no empty split: ceil(n_iter / splits) turns per split must reach
+        # the list's end with the last one
+        per = -(-n_iter // splits)
+        splits = -(-n_iter // per)
+    smem = 2 * bm * 128 + 2 * 64 * Cout * 2 + bm * 9 * 20 + bm * 4
+    return {"bm": bm, "bn": Cout, "tile_h": tile_h, "tile_w": tile_w,
+            "tiles": tiles, "splits": splits, "blocks": tiles * splits,
+            "smem_bytes": smem, "blocks_per_sm": _blocks_per_sm(smem),
+            "scratch_floats": splits * B * H * W * Cout if splits > 1 else 0}
+
+
+def dcoord_plan(P: int, C: int, Cout: int) -> dict:
+    """Launch plan of the tensor-core K3 (csrc/dcn_bwd.cu): 9 * C/64 (tap,
+    channel tile) combinations, each cut into `slices` runs of 64-pixel
+    tiles so that the grid fills the card's resident blocks about twice
+    (and never exceeds two waves), the dynamic shared memory and the
+    grid."""
+    combos = 9 * (C // 64)
+    n_pt = -(-P // 64)
+    smem = 2 * 64 * Cout * 2 + 64 * 128 + 64 * 72 * 4 + 64 * 36
+    per_sm = _blocks_per_sm(smem)
+    slices = max(1, min(n_pt, (2 * SM_COUNT * per_sm) // combos))
+    per = -(-n_pt // slices)
+    slices = -(-n_pt // per)            # no empty slice
+    return {"combos": combos, "pixel_tiles": n_pt, "slices": slices,
+            "blocks": combos * slices, "smem_bytes": smem,
+            "blocks_per_sm": per_sm}
 
 
 def build_all(libraries: Optional[Sequence[CudaLibrary]] = None):
@@ -161,29 +242,51 @@ def _stream(device: torch.device) -> int:
 
 
 class DcnForwardKernel:
-    """`dcn_fwd_launch` with a launch counter."""
+    """`dcn_fwd_launch` with a launch counter, and a counter of the launches
+    that took the tensor-core route."""
 
     def __init__(self):
         self.launches = 0
+        self.tensor_core_launches = 0
 
     def __call__(self, x: torch.Tensor, offset: torch.Tensor,
                  mask: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor, radius: int) -> torch.Tensor:
+                 bias: torch.Tensor, radius: int,
+                 cuda_core: bool = False) -> torch.Tensor:
         """x (B,H,W,C) bf16|f32; offset (B,H,W,9,2) f32 (dy, dx); mask
         (B,H,W,9) f32; weight (3,3,C,Cout) f32; bias (Cout,) f32; all
-        contiguous on one CUDA device.  Returns (B,H,W,Cout) in x.dtype."""
+        contiguous on one CUDA device.  Returns (B,H,W,Cout) in x.dtype.
+        The route follows `dcn_route`; `cuda_core=True` (tests and timing
+        only) runs the CUDA-core body whatever the shape."""
         _check(x, offset, mask, weight, bias=bias)
         B, H, W, C = x.shape
         Cout = weight.shape[-1]
         lib = FWD_LIB.load()
         out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+        route, splits, smem, part = _forward_route(x, C, Cout, cuda_core)
         err = lib.dcn_fwd_launch(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, H, W, C, Cout, int(radius), _dtype_code(x), _stream(x.device))
+            0 if part is None else part.data_ptr(),
+            B, H, W, C, Cout, int(radius), _dtype_code(x),
+            _ROUTE_CODE[route], splits, smem, _stream(x.device))
         FWD_LIB.check(err, "dcn_fwd")
         self.launches += 1
+        self.tensor_core_launches += route == "tensor"
         return out
+
+
+def _forward_route(x: torch.Tensor, C: int, Cout: int, cuda_core: bool):
+    """(route, splits, smem_bytes, scratch) of one forward launch."""
+    route = "cuda_core" if cuda_core else dcn_route(x.dtype, C, Cout)
+    if route != "tensor":
+        return route, 1, 0, None
+    plan = fwd_plan(x.shape[0], x.shape[1], x.shape[2], C, Cout)
+    part = None
+    if plan["scratch_floats"]:
+        part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                           device=x.device)
+    return route, plan["splits"], plan["smem_bytes"], part
 
 
 class DcnBackwardDx:
@@ -218,51 +321,66 @@ class DcnBackwardDx:
 
 class DcnBackwardDcoord:
     """K3 (`dcn_bwd_dcoord_launch`): d_offset, d_mask and d_weight of the DCN
-    forward, with a launch counter."""
+    forward, with a launch counter, and a counter of the launches that took
+    the tensor-core route."""
 
     def __init__(self):
         self.launches = 0
+        self.tensor_core_launches = 0
 
     def __call__(self, x: torch.Tensor, g: torch.Tensor,
                  offset: torch.Tensor, mask: torch.Tensor,
-                 weight: torch.Tensor, radius: int):
+                 weight: torch.Tensor, radius: int, cuda_core: bool = False):
         """x as for the forward; g (B,H,W,Cout) in x.dtype.  Returns
         (d_offset (B,H,W,9,2), d_mask (B,H,W,9), d_weight (3,3,C,Cout)), all
-        f32."""
+        f32.  The route follows `dcn_route`; `cuda_core=True` (tests and
+        timing only) runs the CUDA-core body whatever the shape.  On the
+        tensor-core route d_offset and d_mask are summed with f32 atomics
+        over the Cin/64 channel tiles where Cin > 64, as d_weight is on both
+        routes."""
         _check(x, offset, mask, weight, g=g)
         B, H, W, C = x.shape
         Cout = weight.shape[-1]
         lib = BWD_LIB.load()
-        d_off = torch.empty((B, H, W, 9, 2), dtype=torch.float32,
-                            device=x.device)
-        d_mask = torch.empty((B, H, W, 9), dtype=torch.float32,
-                             device=x.device)
+        route = "cuda_core" if cuda_core else dcn_route(x.dtype, C, Cout)
+        slices = smem = 0
+        new = torch.empty
+        if route == "tensor":
+            plan = dcoord_plan(B * H * W, C, Cout)
+            slices, smem = plan["slices"], plan["smem_bytes"]
+            if plan["combos"] > 9:      # more than one channel tile adds
+                new = torch.zeros
+        d_off = new((B, H, W, 9, 2), dtype=torch.float32, device=x.device)
+        d_mask = new((B, H, W, 9), dtype=torch.float32, device=x.device)
         d_w = torch.zeros((3, 3, C, Cout), dtype=torch.float32,
                           device=x.device)
         err = lib.dcn_bwd_dcoord_launch(
             x.data_ptr(), g.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), d_off.data_ptr(), d_mask.data_ptr(),
             d_w.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
-            _stream(x.device))
+            _ROUTE_CODE[route], slices, smem, _stream(x.device))
         BWD_LIB.check(err, "dcn_bwd_dcoord")
         self.launches += 1
+        self.tensor_core_launches += route == "tensor"
         return d_off, d_mask, d_w
 
 
 class DcnForwardOmKernel:
     """K4 (`dcn_fwd_om_launch`): the forward fed the raw offset/mask conv
-    output, with a launch counter."""
+    output, with a launch counter, and a counter of the launches that took
+    the tensor-core route."""
 
     def __init__(self):
         self.launches = 0
+        self.tensor_core_launches = 0
 
     def __call__(self, x: torch.Tensor, om: torch.Tensor,
                  weight: torch.Tensor, bias: torch.Tensor,
-                 radius: int) -> torch.Tensor:
+                 radius: int, cuda_core: bool = False) -> torch.Tensor:
         """x (B,H,W,C) bf16|f32; om (B,H,W,27) in x.dtype, per tap [dy, dx,
         mask logit]; weight (3,3,C,Cout) f32; bias (Cout,) f32; all
         contiguous on one CUDA device; radius >= 0 (windowed).  Returns
-        (B,H,W,Cout) in x.dtype."""
+        (B,H,W,Cout) in x.dtype.  Routes as `DcnForwardKernel`."""
         _check(x, None, None, weight, bias=bias, om=om)
         if int(radius) < 0:
             raise ValueError("dcn_fwd_om is the windowed function: radius "
@@ -271,12 +389,15 @@ class DcnForwardOmKernel:
         Cout = weight.shape[-1]
         lib = OM_LIB.load()
         out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+        route, splits, smem, part = _forward_route(x, C, Cout, cuda_core)
         err = lib.dcn_fwd_om_launch(
             x.data_ptr(), om.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
-            _stream(x.device))
+            out.data_ptr(), 0 if part is None else part.data_ptr(),
+            B, H, W, C, Cout, int(radius), _dtype_code(x),
+            _ROUTE_CODE[route], splits, smem, _stream(x.device))
         OM_LIB.check(err, "dcn_fwd_om")
         self.launches += 1
+        self.tensor_core_launches += route == "tensor"
         return out
 
 
@@ -330,6 +451,10 @@ def _check(x, offset, mask, weight, bias=None, g=None, x_shape=None,
                          "too large")
     if B * H * W == 0 or C == 0 or Cout <= 0:
         raise ValueError("the DCN kernels need a non-empty input and output")
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "read 16 bytes a thread)")
 
 
 DCN_FWD = DcnForwardKernel()

@@ -183,6 +183,33 @@ def deform_conv_om_plain(x: torch.Tensor, om: torch.Tensor,
     return deform_conv_plain(x, offset, mask, weight, bias, radius)
 
 
+def deform_conv_mma_model(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor], radius: int,
+                          split_weight: bool = False) -> torch.Tensor:
+    """A model of the tensor-core route's arithmetic (csrc/dcn_fwd_body.cuh
+    and, through autograd, K3's g·W^T in csrc/dcn_bwd.cu), for tests only:
+    `deform_conv_plain` with the weight rounded to bf16 before the f32
+    contraction, as the kernels round it while staging.  `split_weight`
+    models the alternative the kernels do not take: W as a bf16 high part
+    plus a bf16 low part, two products.  The gradient passes through the
+    rounding unchanged (d_W is taken with respect to the f32 weight, as in
+    the kernels)."""
+    B, H, W, C = x.shape
+    Cout = weight.shape[-1]
+    cols = _sample_columns(x, offset, mask, radius)
+    w = weight.float().reshape(9 * C, Cout)
+    w_hi = w + (w.bfloat16().float() - w).detach()
+    out = cols.float() @ w_hi
+    if split_weight:
+        rest = w - w_hi.detach()
+        out = out + cols.float() @ (rest + (rest.bfloat16().float()
+                                            - rest).detach())
+    if bias is not None:
+        out = out + bias.float()
+    return out.reshape(B, H, W, Cout).to(x.dtype)
+
+
 def deform_conv2d_windowed(x, offset, mask, weight, bias=None, radius=1):
     """Offsets clamped to [-radius, radius] (side_tpu deform_conv2d_windowed)."""
     return deform_conv_plain(x, offset, mask, weight, bias, radius)

@@ -54,7 +54,9 @@ from .runtime.synthetic import (he_scale, kitti_calib, perturb_offsets,
                                 random_frame)
 
 KINDS = (  # first match wins; lower-case substrings of kernel names
-    ("dcn_fwd_om (K4)", ("dcn_fwd_om",)),
+    # K4 is the forward body instantiated with the OmGeom functor; the pass
+    # that adds a small layer's split sums (dcn_fwd_finish) counts as dcn_fwd
+    ("dcn_fwd_om (K4)", ("dcn_fwd_om", "omgeom")),
     ("dcn_fwd", ("dcn_fwd",)),
     ("dcn_bwd_dx (K2)", ("dcn_bwd_dx",)),
     ("dcn_bwd_dcoord (K3)", ("dcn_bwd_dcoord",)),

@@ -13,6 +13,15 @@ bf16), as csrc/dcn_bwd.cu states.  The fused forward K4 (dcn_fwd_om) is held
 to the forward's tolerances, the gather K5 to 1e-6 relative in f32 (fused
 multiply-add contraction) and one bf16 ulp (plus that f32 noise where the
 four terms cancel).
+
+The forward body (K1, K4) and K3 have two routes (ops/dcn_cuda.py:dcn_route):
+bf16 at Cin % 64 == 0 and Cout in {64, 128, 256} runs on the tensor cores,
+everything else (f32, and the odd widths of `_case`) on CUDA cores.  Both are
+held to the same tolerances; the tensor-core route also rounds the weight to
+bf16, which stays inside them (tests/test_torch_dcn_mma.py).  Outputs that
+sum with f32 atomics (d_weight on both routes; d_offset and d_mask on the
+tensor-core route, over Cin/64 partial sums) may differ between two runs by
+the order of the additions: bounded below at 1e-5 of each output's max.
 """
 
 import numpy as np
@@ -22,7 +31,7 @@ import torch
 from side_tpu_torch.config import Config
 from side_tpu_torch.ops import deform_conv as tdc
 from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX, DCN_FWD,
-                                         DCN_FWD_OM)
+                                         DCN_FWD_OM, dcn_route)
 from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
                                             gather_bilinear_plain)
 
@@ -229,6 +238,123 @@ def test_train_step_on_card_launches_each_kernel_16_times(card):
     assert all(np.isfinite(float(v)) for v in stats.values())
     moved = sum(not torch.equal(before[k], v) for k, v in tr.params.items())
     assert moved >= len(before) - 6      # all but the unread projections
+
+
+# ------------------------------- the tensor-core route of the forward and K3
+# ragged: 1,443 pixels in patches that overhang the image; small: one patch,
+# the reduction split over blocks; wide: Cout 256 (64-pixel tiles) and Cin 128
+MMA_CASES = {"ragged": dict(B=3, H=13, W=37, C=64, Cout=64),
+             "small": dict(B=1, H=5, W=8, C=64, Cout=128),
+             "wide": dict(B=2, H=9, W=21, C=128, Cout=256)}
+
+
+def _mma_case(device, name, seed):
+    x, off, mask, w, b = _case(device, seed=seed, **MMA_CASES[name])
+    w = w / (9 * x.shape[-1]) ** 0.5 / 0.3
+    g = torch.randn(x.shape[:3] + (w.shape[-1],), device=device,
+                    generator=torch.Generator(device).manual_seed(seed + 1))
+    return x.bfloat16(), off, mask, w, b, g.bfloat16()
+
+
+@pytest.mark.parametrize("radius", [1, 2, -1])
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_forward_matches_plain_on_card(card, name, radius):
+    x, off, mask, w, b, _ = _mma_case(card, name, seed=20)
+    assert dcn_route(x.dtype, x.shape[-1], w.shape[-1]) == "tensor"
+    before = (DCN_FWD.launches, DCN_FWD.tensor_core_launches)
+    got = DCN_FWD(x, off, mask, w, b, radius)
+    assert (DCN_FWD.launches, DCN_FWD.tensor_core_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tdc.deform_conv_plain(x, off, mask, w, b, radius)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= TOL[torch.bfloat16], float(err)
+    # the same bits run to run (no atomics, the splits add in a fixed order)
+    assert torch.equal(got, DCN_FWD(x, off, mask, w, b, radius))
+    # and the CUDA-core body on the same operands, through the test entry
+    old = DCN_FWD(x, off, mask, w, b, radius, cuda_core=True)
+    assert DCN_FWD.tensor_core_launches == before[1] + 2
+    err = (old.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= TOL[torch.bfloat16], float(err)
+
+
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_fused_forward_equals_unfused_on_card(card, name):
+    x, off, mask, w, b, _ = _mma_case(card, name, seed=22)
+    logit = torch.randn(mask.shape, device=card,
+                        generator=torch.Generator(card).manual_seed(23))
+    om = torch.cat([off, logit[..., None]], -1).reshape(
+        *x.shape[:3], 27).bfloat16()
+    before = DCN_FWD_OM.tensor_core_launches
+    got = DCN_FWD_OM(x, om, w, b, 1)
+    assert DCN_FWD_OM.tensor_core_launches == before + 1
+    want = tdc.deform_conv_om_plain(x, om, w, b, 1)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= TOL[torch.bfloat16], float(err)
+    o5 = om.reshape(*om.shape[:3], 9, 3)
+    split = DCN_FWD(x, o5[..., :2].float().contiguous(),
+                    torch.sigmoid(o5[..., 2].float()).contiguous(), w, b, 1)
+    assert torch.equal(got, split)
+
+
+@pytest.mark.parametrize("radius", [1, 2, -1])
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_k3_matches_plain_autograd_on_card(card, name, radius):
+    x, off, mask, w, b, g = _mma_case(card, name, seed=24)
+    before = (DCN_BWD_DCOORD.launches, DCN_BWD_DCOORD.tensor_core_launches)
+    got = DCN_BWD_DCOORD(x, g, off, mask, w, radius)
+    assert (DCN_BWD_DCOORD.launches,
+            DCN_BWD_DCOORD.tensor_core_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = _grads(lambda *a: tdc.deform_conv_plain(*a, radius),
+                  x, off, mask, w, b, g)[1:4]
+    old = DCN_BWD_DCOORD(x, g, off, mask, w, radius, cuda_core=True)
+    assert DCN_BWD_DCOORD.tensor_core_launches == before[1] + 1
+    for name_, a, o, ref in zip(("offset", "mask", "weight"), got, old, want):
+        assert a.dtype == torch.float32 and a.shape == ref.shape
+        scale = float(ref.abs().max())
+        assert float((a - ref).abs().max()) / scale <= BWD_TOL[
+            torch.bfloat16], name_
+        assert float((o - ref).abs().max()) / scale <= BWD_TOL[
+            torch.bfloat16], name_
+
+
+def test_route_counter_follows_dtype_and_widths(card):
+    """f32 operands and odd widths take the CUDA-core route (the counter of
+    tensor-core launches stays), bf16 at the model's widths the other."""
+    kernels = (DCN_FWD, DCN_BWD_DCOORD)
+    for dtype, kw, tensor in ((torch.float32, MMA_CASES["ragged"], 0),
+                              (torch.bfloat16, dict(C=40, Cout=72), 0),
+                              (torch.bfloat16, dict(C=64, Cout=72), 0),
+                              (torch.bfloat16, MMA_CASES["ragged"], 1)):
+        x, off, mask, w, b = _case(card, seed=26, **kw)
+        x = x.to(dtype)
+        g = torch.randn(x.shape[:3] + (w.shape[-1],), device=card).to(dtype)
+        route = dcn_route(dtype, x.shape[-1], w.shape[-1])
+        assert (route == "tensor") == bool(tensor)
+        before = [(k.launches, k.tensor_core_launches) for k in kernels]
+        out = DCN_FWD(x, off, mask, w, b, 1)
+        grads = DCN_BWD_DCOORD(x, g, off, mask, w, 1)
+        after = [(k.launches, k.tensor_core_launches) for k in kernels]
+        assert after == [(n + 1, t + tensor) for n, t in before]
+        want = tdc.deform_conv_plain(x, off, mask, w, b, 1)
+        err = (out.float() - want.float()).abs().max()
+        assert float(err / want.float().abs().max()) <= TOL[dtype]
+        assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
+def test_atomic_sums_spread_between_runs_is_bounded(card):
+    """K3 on the tensor-core route adds d_offset and d_mask over Cin/64 = 4
+    partial sums and d_weight over the pixel slices with f32 atomics: two
+    runs agree to 1e-5 of each output's max (seen: 1e-7)."""
+    x, off, mask, w, b = _case(card, seed=28, B=2, H=24, W=40, C=256, Cout=64)
+    x = x.bfloat16()
+    g = torch.randn(x.shape[:3] + (64,), device=card).bfloat16()
+    first = DCN_BWD_DCOORD(x, g, off, mask, w, 1)
+    for _ in range(3):
+        again = DCN_BWD_DCOORD(x, g, off, mask, w, 1)
+        for a, c in zip(first, again):
+            assert float((a - c).abs().max()) <= 1e-5 * float(a.abs().max())
 
 
 # ------------------------------------------------- K4: fused offset/mask DCN
