@@ -28,15 +28,23 @@ Phases, each of which must pass:
      f32 with R=1, and R=-1 at one shape, offsets beyond +-R included;
      the forward kernel's output at the same shapes against the plain
      version's (phase 2's tolerance); the two ragged bf16 shapes of phase
-     2; the route, times, plain times, bounds and, for the forward and K3
-     on the tensor-core route, the CUDA-core body's time;
+     2 (13x37: no multiple of a d_x patch); bf16 at R=2 and R=-1 on a
+     Cout-64 shape and the ragged one, and with every offset at exactly
+     +-R and with offsets far outside the window; the route, times, plain
+     times, bounds and, on the tensor-core route, the CUDA-core body's
+     time; for K2 also where the scatter happens (`scatter`: "patch" in
+     shared memory and registers, "tile" in device memory), the
+     device-memory scatter's time on the patch route's operands
+     (`tile_ms`), and d_x's error over the pixels on the image border and
+     on patch seams alone (`max_rel_err_border`), held to the same
+     tolerance;
   6. the training path: Trainer(Config()) at full width (384x1280, bf16,
      max_objs 50, roi_size 16) on He-scaled seeded weights with perturbed
      offsets, fed 4 rendered stereo pairs held in memory, takes 1 warm-up
      and 3 timed steps (Trainer.train_step); every loss part finite, the
      parameters and BatchNorm statistics move, and the forward kernel, K2
-     and K3 each launch 16 times per step, the forward and K3 on the
-     tensor-core route every time; step time, its upload /
+     and K3 each launch 16 times per step, all on the tensor-core route
+     every time; step time, its upload /
      forward / backward / optimizer split and the peak device memory;
   7. a small train-step check: one f32 step on the card and one on the CPU
      from the same weights and batch (TF32 off; the well-conditioned
@@ -56,9 +64,12 @@ Phases, each of which must pass:
      dcn_fwd), plain times and bounds;
   9. the gather kernel K5 (gather_bilinear) against its plain version at
      the probe's shape (x (2, 96, 320, 64) bf16, 552,960 samples) and in
-     f32; time, bound, plain time and F.grid_sample's; then the probe's own
-     entry point (side_tpu_torch.tools.gather_microbench), which must launch
-     the kernel;
+     f32; time, the earlier one-thread-per-(sample, 8 channels) kernel's
+     time on the same operands (`earlier_ms`), bound, plain time and
+     F.grid_sample's; the time a plain read kernel takes to pull the bytes
+     of the gather's corner rows out of L2 over the image's footprint
+     (`l2_read_ms`, `l2_bytes`); then the probe's own entry point
+     (side_tpu_torch.tools.gather_microbench), which must launch the kernel;
  10. the validation path: val.run_pass at full width over 10 rendered
      scenes held in memory, eval_batch 4 (3 groups of 8 images through the
      trunk, the last padded), fused switch on, pipelined: every group must
@@ -72,8 +83,8 @@ Phases, each of which must pass:
      one frame.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
-forward and of K3 timed on the same bf16 operands in the same run: the design
-that the tensor-core route replaced.
+forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
+design that the tensor-core route replaced.
 Prints a `kernels` JSON line, the script's elapsed time, the card's name and
 power limit, and, last,
 {"ok": true, "device": {...}}.  Exits non-zero if any phase fails or no
@@ -384,26 +395,57 @@ def _bwd_bound_ms(cin, h, w, cout, dtype, batch=TRAIN_BATCH):
     return out
 
 
+def _border_and_seams(h: int, w: int, patch_h: int) -> torch.Tensor:
+    """(h, w) mask of the pixels on the image border and, where K2 owns
+    patches of d_x (patch_h x 16), on a patch's first or last row or
+    column."""
+    ys = torch.arange(h, device="cuda")
+    xs = torch.arange(w, device="cuda")
+    on_y = (ys == 0) | (ys == h - 1)
+    on_x = (xs == 0) | (xs == w - 1)
+    if patch_h:
+        on_y |= (ys % patch_h == 0) | (ys % patch_h == patch_h - 1)
+        on_x |= (xs % 16 == 0) | (xs % 16 == 15)
+    return on_y[:, None] | on_x[None, :]
+
+
 def phase_backward_kernels() -> dict:
     """The forward kernel against the plain version, and K2 and K3 against
     its autograd, at the training shapes; per kernel and case the largest
     error over its outputs."""
     from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
-                                             DCN_FWD)
+                                             DCN_FWD, dcn_route, dx_plan)
     from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
     rows = []
-    cases = [(shape, n, dtype, 1, TRAIN_BATCH) for shape, n in SERVING_SHAPES
+    cases = [(shape, n, dtype, 1, TRAIN_BATCH, "random")
+             for shape, n in SERVING_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, TRAIN_BATCH)
+    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, TRAIN_BATCH, "random")
               for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH)
+    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH, "random")
               for shape in RAGGED_SHAPES]
-    for (cin, h, w, cout), n, dtype, radius, batch in cases:
+    # K2's routes off the model's window: a Cout-64 shape (the patch route
+    # at R=2, the tile route at R=-1) and the ragged one, then every offset
+    # at exactly +-R and offsets far outside [-R, R]
+    cout64 = SERVING_SHAPES[5][0]
+    cases += [(shape, 0, torch.bfloat16, radius, batch, "random")
+              for radius in (2, -1)
+              for shape, batch in ((cout64, TRAIN_BATCH),
+                                   (RAGGED_SHAPES[0], RAGGED_BATCH))]
+    cases += [(shape, 0, torch.bfloat16, 1, batch, offsets)
+              for offsets in ("at_radius", "far_outside")
+              for shape, batch in ((SERVING_SHAPES[3][0], TRAIN_BATCH),
+                                   (RAGGED_SHAPES[0], RAGGED_BATCH))]
+    for (cin, h, w, cout), n, dtype, radius, batch, offsets in cases:
         x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
+        if offsets == "at_radius":
+            off = torch.where(off > 0, 1.0, -1.0) * abs(radius)
+        elif offsets == "far_outside":
+            off = off * 8.0
         g = torch.randn(x.shape[:3] + (cout,), generator=gen,
                         device="cuda").to(dtype)
         leaves = [t.clone().requires_grad_(True)
@@ -423,6 +465,12 @@ def phase_backward_kernels() -> dict:
             diff = (a.float() - b.float()).abs().max().item()
             errs[name] = (diff, diff / max(b.float().abs().max().item(),
                                            1e-30))
+        plan = (dx_plan(batch, h, w, cin, cout, radius)
+                if dcn_route(dtype, cin, cout) == "tensor"
+                else {"scatter": "tile", "patch_h": 0})
+        seam = _border_and_seams(h, w, plan["patch_h"])
+        border_err = ((got[1].float() - want[1].float())[:, seam].abs().max()
+                      / want[1].float()[:, seam].abs().max()).item()
         with torch.no_grad():
             fwd_ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
             fwd_plain = time_ms(lambda: deform_conv_plain(
@@ -441,26 +489,42 @@ def phase_backward_kernels() -> dict:
                 DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
         k3_route = route_and_earlier_ms(
             DCN_BWD_DCOORD, (x, g, off, mask, wt, radius), cin, cout, dtype)
+        k2_route = route_and_earlier_ms(
+            DCN_BWD_DX, (g, off, mask, wt, radius), cin, cout, dtype)
+        k2_extra = {"scatter": plan["scatter"] if k2_route[0] == "tensor"
+                    else None, "tile_ms": None,
+                    "max_rel_err_border": border_err}
+        if plan["scatter"] == "patch":
+            k2_extra["tile_ms"] = time_ms(lambda: DCN_BWD_DX(
+                g, off, mask, wt, radius, scatter="tile"))
         for name, ms, plain_ms, parts, (route, earlier) in (
                 ("dcn_fwd", fwd_ms, fwd_plain, ("out",), fwd_route),
-                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",), ("cuda_core", None)),
+                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",), k2_route),
                 ("dcn_bwd_dcoord", k3_ms, k3_plain,
                  ("offset", "mask", "weight"), k3_route)):
             row = {"kernel": name, "batch": batch, "cin": cin, "h": h,
                    "w": w, "cout": cout,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "per_step": n, "route": route,
-                   "cuda_core_ms": earlier,
+                   "radius": radius, "offsets": offsets, "per_step": n,
+                   "route": route, "cuda_core_ms": earlier,
                    "max_abs_err": max(errs[p][0] for p in parts),
                    "max_rel_err": max(errs[p][1] for p in parts),
                    "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+            if name == "dcn_bwd_dx":
+                row.update(k2_extra)
             rows.append(row)
             log(f"[backward] {json.dumps(row)}")
             tol = (TOLERANCE if name == "dcn_fwd" else BWD_TOLERANCE)[dtype]
             check(np.isfinite(row["max_rel_err"]) and
                   row["max_rel_err"] <= tol,
                   f"{name} disagrees with the plain version: {row} {errs}")
+            # a halo one pixel short would show here, not under the max
+            # over the interior
+            check(name != "dcn_bwd_dx" or (np.isfinite(border_err) and
+                                           border_err <= tol),
+                  f"dcn_bwd_dx disagrees on the border and seam pixels: "
+                  f"{row}")
     return {"rows": rows}
 
 
@@ -508,7 +572,8 @@ def phase_training(steps: int = 3) -> dict:
         want = 0 if name == "dcn_fwd_om" else 16 * n_steps
         check(count == want, f"{name}: {count} launches in {n_steps} steps, "
               f"expected {want}")
-        # K2 has no tensor-core route; the forward and K3 always take it
+        # every launch of the model's DeformBlocks takes the tensor-core
+        # route
         check(tensor_core.get(name, want) == want,
               f"{name}: {tensor_core.get(name)} of {want} launches took the "
               "tensor-core route")
@@ -739,7 +804,8 @@ def phase_fused_kernel() -> dict:
 def phase_gather_kernel() -> dict:
     """K5 at the probe's shape, then the probe itself."""
     from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
-                                                gather_bilinear_plain)
+                                                gather_bilinear_plain,
+                                                gather_body, l2_read_ms)
     from side_tpu_torch.tools import gather_microbench as probe
     rows = []
     with torch.inference_mode():
@@ -765,11 +831,17 @@ def phase_gather_kernel() -> dict:
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS[torch.float32]
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            # what L2 delivers: each sample pulls four rows of C values
+            l2_ms, l2_bytes = l2_read_ms(x, 4 * got.numel() * item)
             row = {"kernel": "gather_bilinear",
                    "dtype": str(dtype).replace("torch.", ""),
                    "x": list(x.shape), "samples": y0.numel(),
+                   "body": gather_body(x.shape[-1]),
                    "max_abs_err": diff.max().item(),
                    "ms": time_ms(lambda: GATHER_BILINEAR(x, y0, x0, fy, fx)),
+                   "earlier_ms": time_ms(lambda: GATHER_BILINEAR(
+                       x, y0, x0, fy, fx, per_thread=True)),
+                   "l2_read_ms": l2_ms, "l2_bytes": l2_bytes,
                    "plain_ms": time_ms(lambda: gather_bilinear_plain(
                        x, y0, x0, fy, fx)),
                    "library_ms": time_ms(lambda: probe.grid_sample_call(
@@ -1091,8 +1163,7 @@ def main() -> int:
             "tensor_core_launches":
                 train["tensor_core_launches"].get(name, 0),
             "routes_checked": _routes(rows),
-            "cuda_core_ms": (_per_unit(step, "cuda_core_ms", "per_step")
-                             if name == "dcn_bwd_dcoord" else None),
+            "cuda_core_ms": _per_unit(step, "cuda_core_ms", "per_step"),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err_bf16": max(r["max_rel_err"] for r in rows
                                     if r["dtype"] == "bfloat16"),
@@ -1106,6 +1177,12 @@ def main() -> int:
             "unit": "one training step (16 launches, B=8, bf16)",
             "per_shape": rows,
         })
+    entries[-2]["scatter_checked"] = {
+        kind: sum(r.get("scatter") == kind for r in bwd["rows"])
+        for kind in ("patch", "tile")}
+    entries[-2]["max_rel_err_border"] = max(
+        r["max_rel_err_border"] for r in bwd["rows"]
+        if r["kernel"] == "dcn_bwd_dx")
     om_group = [r for r in fused["rows"] if r["dtype"] == "bfloat16"
                 and r["batch"] == 8]
     entries.append({
@@ -1144,7 +1221,9 @@ def main() -> int:
         "launches_path": "python -m side_tpu_torch.tools.gather_microbench "
                          "--reps 5",
         "max_abs_err": max(r["max_abs_err"] for r in gather["rows"]),
-        "ms": g_bf16["ms"], "plain_ms": g_bf16["plain_ms"],
+        "ms": g_bf16["ms"], "earlier_ms": g_bf16["earlier_ms"],
+        "l2_read_ms": g_bf16["l2_read_ms"], "l2_bytes": g_bf16["l2_bytes"],
+        "plain_ms": g_bf16["plain_ms"],
         "bound_ms": g_bf16["bound_ms"], "bound_by": g_bf16["bound_by"],
         "library_ms": g_bf16["library_ms"],
         "library_call": "F.grid_sample(bilinear, border, align_corners=True)"

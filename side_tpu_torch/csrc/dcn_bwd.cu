@@ -12,7 +12,7 @@
 //   unbounded, "exact"), split into base = floor and frac = d - base; the four
 //   corners outside the image count as zero, m = mask[p, k], and
 //     gW[c]   = sum_o g[p, o] * W[k, c, o]           (inside the kernels)
-//     d_x[corner_q, c]  += m * w_q * gW[c]           (K2, f32 atomics)
+//     d_x[corner_q, c]  += m * w_q * gW[c]           (K2)
 //     d_mask[p, k]       = sum_c val[c] * gW[c]
 //     d_dy[p, k]         = m * sum_c dval/dy[c] * gW[c] * [|raw dy| <= R]
 //     d_dx[p, k]         = m * sum_c dval/dx[c] * gW[c] * [|raw dx| <= R]
@@ -31,13 +31,36 @@
 // 64-channel 96x320 layers, where the bytes of g and d_x weigh more.  In bf16 on
 // tensor cores the two together need ~0.73 ms per step (chip_smoke.py's bound).
 //
-// K2 (256 threads, 64 pixels x 64 channels per tile, 4 x 4 f32 micro-tiles on
-// CUDA cores): one block per (64 pixels, 64 input channels).  The geometry of its
-// 64 x 9 (pixel, tap) samples goes to shared memory once; per tap it forms the
-// 64 x 64 tile of g·W_k^T from 32-wide chunks of g and W staged in shared memory,
-// then adds m * w_q * gW into the four corners with atomicAdd into an f32 buffer
-// (the wrapper casts it to x's dtype).
-//
+// K2 has three bodies; the wrapper picks from dtype, widths and window alone
+// (ops/dcn_cuda.py: dcn_route, dx_plan).  What bounded the first design (the
+// CUDA-core body below) was both halves: the product on f32 FMA units, 15 times
+// under the tensor cores' rate, and the scatter, one scalar f32 atomicAdd to
+// device memory per (sample, corner, channel), all resolved in L2; around it a
+// memset of an f32 d_x and a cast (tools/dx_split.py times each alone).
+//   CUDA cores (f32, and bf16 at other widths; `dcn_bwd_dx_kernel`): 256
+//   threads, 64 pixels x 64 channels a block, 4 x 4 f32 micro-tiles.  The geometry
+//   of its 64 x 9 samples goes to shared memory once; per tap it forms the tile
+//   of g·W_k^T from 32-wide chunks of g and W staged in shared memory, then adds
+//   m * w_q * gW into the four corners with atomicAdd into an f32 buffer (the
+//   wrapper casts it to g's dtype).
+//   Tensor cores, scatter in device memory ("tile": bf16 g, Cin % 64 == 0, Cout in
+//   {64, 128, 256}, any window; `dcn_bwd_dx_mma_kernel`): one block owns 64
+//   pixels x 64 channels and loops over the taps.  The g tile is staged once for
+//   all taps, W_k's rows per tap (rounded to bf16, the route's one new rounding),
+//   gW = g·W_k^T is mma.sync with f32 accumulators (dcn_mma.cuh: gw_product_64,
+//   shared with K3), and the scatter is one 16-byte atomicAdd (float4: four
+//   neighbouring channels of a pixel) per corner.  That takes the product off
+//   the critical path; what is left is the L2's rate for f32 reductions, which
+//   the vector form does not raise (the bytes, not the instructions, bound it).
+//   Tensor cores, scatter kept in the block ("patch": the same operands with
+//   Cout = 64 and the window R = 1; `dcn_bwd_dx_patch_kernel`): a block owns
+//   a patch of d_x in registers and gathers it from gW of the patch grown by
+//   the halo R + 1; it writes d_x once, in bf16: no atomics, no memset, no cast,
+//   the same bits every run.  The product runs over the halo too (1.9 to 2.5
+//   times the pixels), which at Cout 128 and 256 costs more than the device
+//   scatter it saves, as do the 25 slots of R = 2: there the "tile" body stays
+//   (PERF.md has both per shape).
+//   Its design is described at the kernel.
 // K3 has two routes, picked from dtype and shape alone (ops/dcn_cuda.py:
 // dcn_route).
 //   Route 1, tensor cores (bf16 x and g, Cin % 64 == 0, Cout in {64, 128, 256}:
@@ -90,14 +113,24 @@
 // deform_conv_plain) on the same inputs, max |diff| / max |plain| per cotangent:
 // 1e-4 in f32 (sums in another order, atomics in no fixed order) and 2e-2 in bf16
 // (the plain version rounds the column gradient and d_x to bf16 where these
-// kernels keep f32; route 1 of K3 rounds W to bf16, 2^-9 relative per term, far
-// inside that: 2.3e-3 .. 3.0e-3 measured over the model's shapes on an H100).
-// chip_smoke.py and tests/test_torch_cuda.py assert both.
+// kernels keep f32 and round d_x once; the tensor-core routes of K2 and K3 round
+// W to bf16, 2^-9 relative per term, far inside that: 2.3e-3 .. 3.0e-3 measured
+// for K3 over the model's shapes on an H100).  chip_smoke.py and
+// tests/test_torch_cuda.py assert both, for d_x also over the image-border and
+// patch-seam pixels alone.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "dcn_mma.cuh"
+
+// Measurement builds of K2 only (tools/dx_split.py compiles them into libraries
+// of their own): 1 forms the product and leaves the scatter out (one store a
+// thread), 2 leaves the product out (a constant in its place) and keeps the
+// scatter.  0, the default, is the kernel.
+#ifndef DCN_DX_SPLIT
+#define DCN_DX_SPLIT 0
+#endif
 
 namespace {
 
@@ -125,6 +158,16 @@ struct Sample {
   float fy, fx, m, pass_y, pass_x;
 };
 
+// A raw offset clamped to [-R, R] (R >= 0; NaN becomes -R, as in the forward),
+// split into floor (returned) and fraction.  At the clamp's upper end the floor
+// is R and the fraction 0, so no corner beyond tap + R carries weight.
+__device__ __forceinline__ int window_split(float raw, int R, float& frac) {
+  const float d = fminf(fmaxf(raw, -(float)R), (float)R);
+  const float b = floorf(d);
+  frac = d - b;
+  return (int)b;
+}
+
 // from the raw offset (rdy, rdx) and mask m of (pixel p, tap k)
 __device__ __forceinline__ Sample sample_from(float rdy, float rdx, float m, int p, int k,
                                               int H, int W, int C, int R) {
@@ -139,13 +182,8 @@ __device__ __forceinline__ Sample sample_from(float rdy, float rdx, float m, int
   const int kx = xq + k % 3 - 1;
   int y0, x0;
   if (R >= 0) {
-    const float dy = fminf(fmaxf(rdy, -(float)R), (float)R);
-    const float dx = fminf(fmaxf(rdx, -(float)R), (float)R);
-    const float by = floorf(dy), bx = floorf(dx);
-    s.fy = dy - by;
-    s.fx = dx - bx;
-    y0 = ky + (int)by;
-    x0 = kx + (int)bx;
+    y0 = ky + window_split(rdy, R, s.fy);
+    x0 = kx + window_split(rdx, R, s.fx);
     s.pass_y = fabsf(rdy) <= (float)R ? 1.f : 0.f;   // false for NaN
     s.pass_x = fabsf(rdx) <= (float)R ? 1.f : 0.f;
   } else {
@@ -231,7 +269,14 @@ __device__ __forceinline__ void gw_tile(const T* __restrict__ g, const float* __
   }
 }
 
-// ------------------------------------------------------------------------- K2: d_x
+#if DCN_DX_SPLIT == 1
+// where a thread of the scatter-less measurement build leaves its one value
+__device__ __forceinline__ size_t split_slot() {
+  return ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x;
+}
+#endif
+
+// ------------------------------------------------- K2, CUDA-core route: d_x
 // g: (B, H, W, Cout) T; off (B, H, W, 9, 2) f32; mask (B, H, W, 9) f32;
 // w (3, 3, C, Cout) f32; dx (B, H, W, C) f32, zeroed by the caller.
 template <typename T>
@@ -273,9 +318,27 @@ dcn_bwd_dx_kernel(const T* __restrict__ g, const float* __restrict__ off,
 
   const int tx = tid % 16;
   const int ty = tid / 16;
+#if DCN_DX_SPLIT == 1
+  float kept = 0.f;
+#endif
   for (int k = 0; k < kTaps; ++k) {
     float acc[4][4];
+#if DCN_DX_SPLIT == 2
+    __syncthreads();   // gw_tile's first barrier: the geometry is in shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 1.f;
+#else
     gw_tile<T>(g, w, k, p0, c0, P, C, Cout, s_g, s_w, acc);
+#endif
+#if DCN_DX_SPLIT == 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kept += s_wt[(ty + 16 * i) * kTaps + k][j] * acc[i][j];
+    continue;
+#endif
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int e = (ty + 16 * i) * kTaps + k;
@@ -292,6 +355,9 @@ dcn_bwd_dx_kernel(const T* __restrict__ g, const float* __restrict__ off,
       }
     }
   }
+#if DCN_DX_SPLIT == 1
+  dx[split_slot()] = kept;
+#endif
 }
 
 // ----------------------- K3, CUDA-core route: d_offset, d_mask, d_weight
@@ -518,12 +584,10 @@ dcn_bwd_dcoord_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 
 // ------------------------------- K3, tensor-core route (see the file's header)
-constexpr int kGwStride = 72;   // f32 per row of the gW tile: 64 + 8, conflict-free
-
 // dynamic shared memory of one block: W_k rows and the g tile (64 x BN bf16
 // each), the column tile (64 x 64 bf16), gW (64 x 72 f32), the tile's geometry
 constexpr int dcoord_mma_smem_bytes(int bn) {
-  return 2 * 64 * bn * 2 + 64 * 128 + 64 * kGwStride * 4 + 64 * (16 + 5 * 4);
+  return 2 * 64 * bn * 2 + 64 * 128 + 64 * dcn_mma::kGwStride * 4 + 64 * (16 + 5 * 4);
 }
 
 // x (P, C) bf16, g (P, BN) bf16, w (9, C, BN) f32; dw f32, zeroed; doff, dmask
@@ -661,48 +725,8 @@ dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat
     };
     if (kEarlyCorners) load_corners();
 
-    // 2. gW[p, c] = sum_o g[p, o] * W_k[c, o]: warp tile 32 pixels x 16 channels
-    {
-      float acc_g[2][2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc_g[mi][ni][r] = 0.f;
-#pragma unroll 4
-      for (int ks = 0; ks < BN / 16; ++ks) {
-        uint32_t af[2][4], bf[4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int row = wm * 32 + mi * 16 + (lane & 15);
-          ldmatrix_x4(af[mi], g_base + swz(row, ks * 2 + (lane >> 4), kRowBytes));
-        }
-        // W_k is stored [n = c][k = o]: tiles (n 0-7, k 0-7), (n 0-7, k 8-15),
-        // (n 8-15, k 0-7), (n 8-15, k 8-15), no transpose
-        const int nrow = wn * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(bf, w_base + swz(nrow, ks * 2 + ((lane >> 3) & 1), kRowBytes));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc_g[mi][0], af[mi], bf[0], bf[1]);
-          mma_bf16(acc_g[mi][1], af[mi], bf[2], bf[3]);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * half;
-#pragma unroll
-          for (int ni = 0; ni < 2; ++ni) {
-            const int col = wn * 16 + ni * 8 + (lane & 3) * 2;
-            // columns 32..63 swap their halves of 4: the readers' float4 loads
-            // of channel groups g and g + 4 then miss each other's banks
-            *reinterpret_cast<float2*>(sGW + row * kGwStride + (col ^ ((col >> 3) & 4))) =
-                make_float2(acc_g[mi][ni][2 * half], acc_g[mi][ni][2 * half + 1]);
-          }
-        }
-    }
+    // 2. gW[p, c] = sum_o g[p, o] * W_k[c, o] -> sGW
+    gw_product_64<BN>(g_base, w_base, GwTileStore{sGW});
     __syncthreads();
 
     // 3. the corner values meet gW: the column tile for d_W, d_mask, d_offset
@@ -832,6 +856,398 @@ int launch_dcoord_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, const floa
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------ K2, tensor-core routes (see the file's header)
+// Both stage the g rows they need once, for all nine taps, and per tap W_k's 64
+// rows (rounded to bf16) and form gW = g·W_k^T with gw_product_64.
+
+// g rows [r0, r0 + rows) of a block's row list into the swizzled tile sG; `pix`
+// maps a row to its pixel (< 0: no pixel, the row is zero)
+template <int BN, typename PixelOf>
+__device__ __forceinline__ void stage_g_rows(const __nv_bfloat16* __restrict__ g, int rows,
+                                             PixelOf pix, unsigned char* sG) {
+  using namespace dcn_mma;
+  constexpr int kGroups = BN / 8;
+  for (int item = threadIdx.x; item < rows * kGroups; item += kThreads) {
+    const int r = item / kGroups;
+    const int gq = item - r * kGroups;
+    const int p = pix(r);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (p >= 0) v = __ldg(reinterpret_cast<const uint4*>(g + (size_t)p * BN + gq * 8));
+    *reinterpret_cast<uint4*>(sG + swz(r, gq, BN * 2)) = v;
+  }
+}
+
+// Route 1: 64 pixels x 64 channels a block, the scatter to device memory.
+// dynamic shared memory: W_k and the g tile (64 x BN bf16 each), gW (64 x 72
+// f32), the corner offsets and weights of the tile's 64 x 9 samples
+constexpr int dx_tile_smem_bytes(int bn) {
+  return 2 * 64 * bn * 2 + 64 * dcn_mma::kGwStride * 4 + 64 * kTaps * (16 + 16);
+}
+
+// g (P, BN) bf16, w (9, C, BN) f32; dx (P, C) f32, zeroed.  Block (x, y, z):
+// pixel tile x, channel tile y, share z of the taps (a small layer's nine taps are
+// split over gridDim.z blocks so that every SM has one).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 2)
+dcn_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ g, const float* __restrict__ off,
+                      const float* __restrict__ mask, const float* __restrict__ w,
+                      float* __restrict__ dx, int B, int H, int W, int C, int R) {
+  using namespace dcn_mma;
+  constexpr int kRowBytes = BN * 2;
+  extern __shared__ uint4 dcn_dyn_smem[];
+  unsigned char* sW = reinterpret_cast<unsigned char*>(dcn_dyn_smem);   // [c][o]
+  unsigned char* sG = sW + 64 * kRowBytes;                              // [p][o]
+  float* sGW = reinterpret_cast<float*>(sG + 64 * kRowBytes);           // [p][c], stride 72
+  int4* s_idx = reinterpret_cast<int4*>(sGW + 64 * kGwStride);          // [k][p]
+  float4* s_wt = reinterpret_cast<float4*>(s_idx + 64 * kTaps);         // mask * corner weight
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int P = B * H * W;
+  const int p0 = blockIdx.x * 64;
+  const int c0 = blockIdx.y * 64;
+
+  stage_g_rows<BN>(g, 64, [&](int r) { return p0 + r < P ? p0 + r : -1; }, sG);
+  for (int e = tid; e < 64 * kTaps; e += kThreads) {
+    const int lp = e / kTaps;
+    const int k = e - lp * kTaps;
+    int4 id = make_int4(-1, -1, -1, -1);
+    float4 wt = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p0 + lp < P) {
+      const Sample sp = sample_at(off, mask, p0 + lp, k, H, W, C, R);
+      float cw[4];
+      corner_weights(sp.fy, sp.fx, cw);
+      id = make_int4(sp.idx[0], sp.idx[1], sp.idx[2], sp.idx[3]);
+      wt = make_float4(sp.m * cw[0], sp.m * cw[1], sp.m * cw[2], sp.m * cw[3]);
+    }
+    s_idx[k * 64 + lp] = id;
+    s_wt[k * 64 + lp] = wt;
+  }
+  const int taps_per = (kTaps + gridDim.z - 1) / gridDim.z;
+  const int k_begin = blockIdx.z * taps_per;
+  const int k_end = min(kTaps, k_begin + taps_per);
+  stage_weight_rows<BN>(w, k_begin * C + c0, sW);
+  __syncthreads();
+
+  const uint32_t w_base = smem_addr(sW);
+  const uint32_t g_base = smem_addr(sG);
+  // a half-warp per sample: lane j of it owns channels 4 j .. 4 j + 3
+  const int half = lane >> 4;
+  const int j = lane & 15;
+  float* dst = dx + c0 + 4 * j;
+#if DCN_DX_SPLIT == 1
+  float kept = 0.f;
+#endif
+  for (int k = k_begin; k < k_end; ++k) {
+#if DCN_DX_SPLIT != 2
+    gw_product_64<BN>(g_base, w_base, GwTileStore{sGW});
+#endif
+    __syncthreads();   // gW complete; W_k consumed
+    if (k + 1 < k_end) stage_weight_rows<BN>(w, (k + 1) * C + c0, sW);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lp = warp * 8 + i * 2 + half;
+#if DCN_DX_SPLIT == 2
+      const float4 gw = make_float4(1.f, 1.f, 1.f, 1.f);
+#else
+      const float4 gw = *reinterpret_cast<const float4*>(sGW + lp * kGwStride + gw_col(4 * j));
+#endif
+      const int4 id = s_idx[k * 64 + lp];
+      const float4 wt = s_wt[k * 64 + lp];
+#if DCN_DX_SPLIT == 1
+      kept += (wt.x + wt.y + wt.z + wt.w) * (gw.x + gw.y + gw.z + gw.w) + (float)id.x;
+#else
+      // one 16-byte reduction a corner: four neighbouring channels of one pixel
+      if (id.x >= 0)
+        atomicAdd(reinterpret_cast<float4*>(dst + id.x),
+                  make_float4(wt.x * gw.x, wt.x * gw.y, wt.x * gw.z, wt.x * gw.w));
+      if (id.y >= 0)
+        atomicAdd(reinterpret_cast<float4*>(dst + id.y),
+                  make_float4(wt.y * gw.x, wt.y * gw.y, wt.y * gw.z, wt.y * gw.w));
+      if (id.z >= 0)
+        atomicAdd(reinterpret_cast<float4*>(dst + id.z),
+                  make_float4(wt.z * gw.x, wt.z * gw.y, wt.z * gw.z, wt.z * gw.w));
+      if (id.w >= 0)
+        atomicAdd(reinterpret_cast<float4*>(dst + id.w),
+                  make_float4(wt.w * gw.x, wt.w * gw.y, wt.w * gw.z, wt.w * gw.w));
+#endif
+    }
+    __syncthreads();   // gW consumed; W_{k+1} staged
+  }
+#if DCN_DX_SPLIT == 1
+  dx[split_slot()] = kept;
+#endif
+}
+
+template <int BN>
+int launch_dx_mma(const __nv_bfloat16* g, const float* off, const float* mask, const float* w,
+                  float* dx, int B, int H, int W, int C, int R, int tap_splits, int smem_bytes,
+                  cudaStream_t s) {
+  constexpr int kSmem = dx_tile_smem_bytes(BN);
+  // the caller's plan is another's, or leaves a block without a tap
+  if (smem_bytes != kSmem || tap_splits < 1 || tap_splits > kTaps ||
+      (kTaps + tap_splits - 1) / tap_splits * (tap_splits - 1) >= kTaps)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dcn_bwd_dx_mma_kernel<BN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long P = (long long)B * H * W;
+  const dim3 grid((unsigned)((P + 63) / 64), (unsigned)(C / 64), (unsigned)tap_splits);
+  kernel<<<grid, kThreads, kSmem, s>>>(g, off, mask, w, dx, B, H, W, C, R);
+  return (int)cudaGetLastError();
+}
+
+// Route 2 (R = 1, the model's window): a block owns a patch of d_x, PH x 16 pixels of one image
+// x 64 channels, in registers: thread (pixel d of each band of 4 patch rows,
+// channel quarter) holds 16 f32 sums a pixel.  With offsets clamped to [-R, R]
+// pixel p receives, per tap, from the output pixels p - tap - e, e in [-R, R]^2
+// (window_split: the corner at floor + 1 = R + 1 has weight 0), all inside the
+// patch grown by the halo R + 1 (the region).  Per tap:
+//   phase 1  gW of the region's rows -> shared memory (tensor cores; a warp
+//            forms 32 rows x 64 channels), and each of the region's samples
+//            writes, for every e, mask * corner weight (or 0 where none of its
+//            corners falls there) into the slot (e, pixel p = sample + tap + e)
+//            of the weight list: one writer a slot, so nothing is added and
+//            the order of the sum is fixed;
+//   phase 2  every thread walks the (2R+1)^2 slots of its pixels and adds
+//            weight * gW[p - tap - e] for its 16 channels, weights of 0
+//            included: without a branch all of a tap's loads are independent
+//            and can be in flight together, and the reads cost shared-memory
+//            bandwidth by the warp whatever the weights.  Lanes are
+//            neighbouring pixels, so they read neighbouring rows of gW; rows are
+//            72 f32 apart and the 16-byte groups of rows 4..7 (mod 8) swap in
+//            pairs, which keeps both these reads and the tensor-core fragments'
+//            8-byte stores off each other's banks.
+// The formulation holds for any window; the kernel is built for R = 1 alone (the
+// slot loops unroll): at R = 2 it walks 25 slots over a halo of 3 and measured
+// slower than the device-memory scatter, which serves the other windows.
+// The next tap's W_k is loaded before phase 2 and stored after it, the next
+// tap's raw offsets one tap ahead.
+constexpr int kPatchW = 16;
+constexpr int kPatchRadius = 1;
+__host__ __device__ constexpr int dx_region(int ph, int halo) {
+  return (ph + 2 * halo) * (kPatchW + 2 * halo);
+}
+// dynamic shared memory: the region's g rows (to a multiple of 32) and W_k
+// (bf16), the region's gW (f32), the weight list of (2R+1)^2 slots x patch
+// pixels (f32)
+__host__ __device__ constexpr int dx_patch_smem_bytes(int bn, int ph, int halo) {
+  return (dx_region(ph, halo) + 31) / 32 * 32 * bn * 2 + 64 * bn * 2 +
+         dx_region(ph, halo) * dcn_mma::kGwStride * 4 +
+         (2 * halo - 1) * (2 * halo - 1) * ph * kPatchW * 4;
+}
+
+// column of gW's row `row` that holds channel group (of 4) `c4`
+__device__ __forceinline__ int gather_col(int row, int c4) { return (c4 ^ ((row >> 2) & 1)) * 4; }
+
+struct GwRegionStore {
+  float* sGW;
+  int rows;
+  __device__ __forceinline__ void operator()(int row, int col, float2 v) const {
+    if (row < rows)
+      *reinterpret_cast<float2*>(sGW + row * dcn_mma::kGwStride + gather_col(row, col >> 2) +
+                                 (col & 3)) = v;
+  }
+};
+
+// g (B, H, W, BN) bf16, w (9, C, BN) f32; dx (B, H, W, C) bf16, written in full.
+// Block (x, y): patch x = (image, patch row, patch column), channel tile y.
+template <int BN, int PH>
+__global__ void __launch_bounds__(kThreads, 2)
+dcn_bwd_dx_patch_kernel(const __nv_bfloat16* __restrict__ g, const float* __restrict__ off,
+                        const float* __restrict__ mask, const float* __restrict__ w,
+                        __nv_bfloat16* __restrict__ dx, int B, int H, int W, int C) {
+  using namespace dcn_mma;
+  constexpr int kRowBytes = BN * 2;
+  constexpr int kOwn = PH / 4;                   // pixels a thread owns
+  constexpr int kPix = PH * kPatchW;
+  constexpr int R = kPatchRadius;
+  constexpr int halo = R + 1;
+  constexpr int RW = kPatchW + 2 * halo;
+  constexpr int NR = (PH + 2 * halo) * RW;       // region pixels
+  constexpr int g_rows = (NR + 31) / 32 * 32;
+  constexpr int ne = 2 * R + 1;                  // slots along an axis
+
+  extern __shared__ uint4 dcn_dyn_smem[];
+  unsigned char* sG = reinterpret_cast<unsigned char*>(dcn_dyn_smem);   // [region row][o]
+  unsigned char* sW = sG + (size_t)g_rows * kRowBytes;                  // [c][o]
+  float* sGW = reinterpret_cast<float*>(sW + 64 * kRowBytes);           // [region row][c]
+  float* s_wl = sGW + NR * kGwStride;                                   // [slot][pixel]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int tiles_x = (W + kPatchW - 1) / kPatchW;
+  const int tiles_y = (H + PH - 1) / PH;
+  int t = blockIdx.x;
+  const int px0 = (t % tiles_x) * kPatchW;
+  t /= tiles_x;
+  const int py0 = (t % tiles_y) * PH;
+  const int b = t / tiles_y;
+  const int c0 = blockIdx.y * 64;
+
+  // pixel of region row r: -1 beyond the region or outside the image
+  auto pixel_of = [&](int r, int& y, int& x) {
+    const int ry = r / RW;
+    y = py0 - halo + ry;
+    x = px0 - halo + (r - ry * RW);
+    return (r < NR && y >= 0 && y < H && x >= 0 && x < W) ? (b * H + y) * W + x : -1;
+  };
+  stage_g_rows<BN>(g, g_rows, [&](int r) { int y, x; return pixel_of(r, y, x); }, sG);
+  stage_weight_rows<BN>(w, c0, sW);
+
+  // as a sample: region row tid
+  static_assert(NR <= kThreads, "one sample a thread");
+  int my_y, my_x;
+  const int my_p = pixel_of(tid, my_y, my_x);
+  const int my_ry = tid / RW;
+  const int my_rx = tid - my_ry * RW;
+  float raw_dy = 0.f, raw_dx = 0.f, raw_m = 0.f;
+  auto load_raw = [&](int k) {
+    if (my_p < 0) return;
+    const size_t e = (size_t)my_p * kTaps + k;
+    raw_dy = __ldg(off + 2 * e);
+    raw_dx = __ldg(off + 2 * e + 1);
+    raw_m = __ldg(mask + e);
+  };
+  load_raw(0);
+
+  // as an owner: pixel d of every band of 4 patch rows, channels cq * 16 .. + 16
+  const int d = tid & 63;
+  const int d_y = d >> 4;
+  const int d_x = d & 15;
+  const int cq = tid >> 6;
+  float acc[kOwn][16];
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[o][i] = 0.f;
+
+  const uint32_t w_base = smem_addr(sW);
+  const uint32_t g_base = smem_addr(sG);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = 0; k < kTaps; ++k) {
+    const int ty = k / 3 - 1, tx = k % 3 - 1;
+    // phase 1: the region's gW, and its samples' weights
+#if DCN_DX_SPLIT != 2
+    for (int row0 = warp * 32; row0 < g_rows; row0 += 32 * (kThreads / 32))
+      gw_product_slab<BN>(g_base, row0, w_base, GwRegionStore{sGW, NR});
+#endif
+    if (tid < NR) {
+      const bool live = my_p >= 0;
+      float fy, fx;
+      const int by = window_split(raw_dy, R, fy);
+      const int bx = window_split(raw_dx, R, fx);
+      float cw[4];
+      corner_weights(fy, fx, cw);
+#pragma unroll
+      for (int ey = -R; ey <= R; ++ey) {
+        const int py = my_ry - halo + ty + ey;           // the receiving pixel, in the patch
+        if (py < 0 || py >= PH) continue;
+        const int iy = my_y + ty + ey;                   // and in the image
+#pragma unroll
+        for (int ex = -R; ex <= R; ++ex) {
+          const int px = my_rx - halo + tx + ex;
+          if (px < 0 || px >= kPatchW) continue;
+          const int ix = my_x + tx + ex;
+          const int a = ey - by, bq = ex - bx;           // which corner of the sample, if any
+          float wq = 0.f;
+          if (live && a >= 0 && a <= 1 && bq >= 0 && bq <= 1 && iy >= 0 && iy < H && ix >= 0 &&
+              ix < W)
+            wq = raw_m * cw[2 * a + bq];
+          s_wl[((ey + R) * ne + ex + R) * kPix + py * kPatchW + px] = wq;
+        }
+      }
+    }
+    if (k + 1 < kTaps) load_raw(k + 1);
+    __syncthreads();
+
+    // phase 2: gather; the next W_k comes in around it
+    WeightRows<BN> w_next;
+    if (k + 1 < kTaps) load_weight_rows<BN>(w, (k + 1) * C + c0, w_next);
+#if DCN_DX_SPLIT != 1
+#pragma unroll
+    for (int ey = -R; ey <= R; ++ey) {
+#pragma unroll
+      for (int ex = -R; ex <= R; ++ex) {
+        const float* wl = s_wl + ((ey + R) * ne + ex + R) * kPix + d;
+#pragma unroll
+        for (int o = 0; o < kOwn; ++o) {
+          const float wq = wl[o * 64];
+          const int row = (o * 4 + d_y + halo - ty - ey) * RW + d_x + halo - tx - ex;
+          const float* src = sGW + row * kGwStride;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v = *reinterpret_cast<const float4*>(src + gather_col(row, cq * 4 + i));
+            acc[o][4 * i] = fmaf(wq, v.x, acc[o][4 * i]);
+            acc[o][4 * i + 1] = fmaf(wq, v.y, acc[o][4 * i + 1]);
+            acc[o][4 * i + 2] = fmaf(wq, v.z, acc[o][4 * i + 2]);
+            acc[o][4 * i + 3] = fmaf(wq, v.w, acc[o][4 * i + 3]);
+          }
+        }
+      }
+    }
+#else
+    acc[0][0] += sGW[(tid & 63) * kGwStride + (tid >> 6)] + s_wl[tid & 63];
+#endif
+    if (k + 1 < kTaps) store_weight_rows<BN>(w_next, sW);
+    __syncthreads();
+  }
+
+  // the patch, rounded to bf16 once: 16 channels (32 bytes) of a pixel a thread
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int y = py0 + o * 4 + d_y;
+    const int x = px0 + d_x;
+    if (y >= H || x >= W) continue;
+    uint4* dst = reinterpret_cast<uint4*>(dx + ((size_t)(b * H + y) * W + x) * C + c0 + cq * 16);
+    const float(&v)[16] = acc[o];
+    dst[0] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                        pack_bf16(v[6], v[7]));
+    dst[1] = make_uint4(pack_bf16(v[8], v[9]), pack_bf16(v[10], v[11]), pack_bf16(v[12], v[13]),
+                        pack_bf16(v[14], v[15]));
+  }
+}
+
+template <int BN, int PH>
+int launch_dx_patch(const __nv_bfloat16* g, const float* off, const float* mask, const float* w,
+                    __nv_bfloat16* dx, int B, int H, int W, int C, int R, int smem_bytes,
+                    cudaStream_t s) {
+  constexpr int smem = dx_patch_smem_bytes(BN, PH, kPatchRadius + 1);
+  // the caller's plan is another's
+  if (R != kPatchRadius || smem_bytes != smem) return (int)cudaErrorInvalidValue;
+  auto kernel = dcn_bwd_dx_patch_kernel<BN, PH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long patches =
+      (long long)B * ((H + PH - 1) / PH) * ((W + kPatchW - 1) / kPatchW);
+  const dim3 grid((unsigned)patches, (unsigned)(C / 64));
+  kernel<<<grid, kThreads, smem, s>>>(g, off, mask, w, dx, B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_dx_tensor(const __nv_bfloat16* g, const float* off, const float* mask, const float* w,
+                     void* dx, int B, int H, int W, int C, int R, int patch_h, int tap_splits,
+                     int smem_bytes, cudaStream_t s) {
+  if (patch_h == 0)
+    return launch_dx_mma<BN>(g, off, mask, w, static_cast<float*>(dx), B, H, W, C, R, tap_splits,
+                             smem_bytes, s);
+  // the patch route is built for Cout = 64 only (ops/dcn_cuda.py:dx_plan)
+  if (BN != 64) return (int)cudaErrorInvalidValue;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dx);
+  if (patch_h == 8)
+    return launch_dx_patch<64, 8>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
+  if (patch_h == 4)
+    return launch_dx_patch<64, 4>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -839,13 +1255,38 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x and g).  Each launches on `stream` and
 // returns cudaGetLastError() as an int (0 = launched).
 
-// K2.  dx (B, H, W, C) f32 must be zero.
+// K2.  route 0 (CUDA cores): dx (B, H, W, C) f32 must be zero.  route 1 (tensor
+// cores, bf16 g only; `patch_h`, `tap_splits` and `smem_bytes` from
+// ops/dcn_cuda.py:dx_plan):
+// patch_h == 0 scatters to device memory, dx f32 and zero as on route 0;
+// patch_h 4 or 8 (radius 1, Cout 64) keeps the scatter in the block and writes
+// dx (B, H, W, C) bf16 in full.
 int dcn_bwd_dx_launch(const void* g, const void* off, const void* mask, const void* w, void* dx,
-                      int B, int H, int W, int C, int Cout, int radius, int dtype,
-                      void* stream) {
+                      int B, int H, int W, int C, int Cout, int radius, int dtype, int route,
+                      int patch_h, int tap_splits, int smem_bytes, void* stream) {
   const long long P = (long long)B * H * W;
-  const dim3 grid((unsigned)((P + kTilePix - 1) / kTilePix), (unsigned)((C + kTileC - 1) / kTileC));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || C <= 0 || C % 64 != 0) return (int)cudaErrorInvalidValue;
+    const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+    const float* of = static_cast<const float*>(off);
+    const float* mf = static_cast<const float*>(mask);
+    const float* wf = static_cast<const float*>(w);
+    switch (Cout) {
+      case 64:
+        return launch_dx_tensor<64>(gb, of, mf, wf, dx, B, H, W, C, radius, patch_h, tap_splits,
+                                     smem_bytes, s);
+      case 128:
+        return launch_dx_tensor<128>(gb, of, mf, wf, dx, B, H, W, C, radius, patch_h, tap_splits,
+                                     smem_bytes, s);
+      case 256:
+        return launch_dx_tensor<256>(gb, of, mf, wf, dx, B, H, W, C, radius, patch_h, tap_splits,
+                                     smem_bytes, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  const dim3 grid((unsigned)((P + kTilePix - 1) / kTilePix), (unsigned)((C + kTileC - 1) / kTileC));
   if (dtype == 0) {
     dcn_bwd_dx_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(g), static_cast<const float*>(off),

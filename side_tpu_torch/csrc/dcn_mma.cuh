@@ -1,10 +1,12 @@
 // Tensor-core building blocks shared by the DCN kernels for Hopper (sm_90a):
-// the forward body (dcn_fwd_body.cuh) and K3 (dcn_bwd.cu).
+// the forward body (dcn_fwd_body.cuh) and the backward kernels K2 and K3
+// (dcn_bwd.cu).
 //
 // Two ways to the tensor cores, both bf16 with f32 accumulators:
 //   * warp-level `mma.sync.aligned.m16n8k16`, operands read from shared memory
-//     into registers with `ldmatrix` (K3: its second product needs both
-//     operands transposed, which `ldmatrix.trans` gives for free);
+//     into registers with `ldmatrix` (K2 and K3: `gw_product_64` is the product
+//     g·W_k^T both form; K3's second product needs both operands transposed,
+//     which `ldmatrix.trans` gives for free);
 //   * warpgroup-level `wgmma.mma_async` m64nNk16, operands read by the tensor
 //     cores from shared memory through matrix descriptors (the forward body).
 // Every shared tile is a row-major array of bf16 whose rows are a multiple of
@@ -85,10 +87,16 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
 // Stage rows [row0, row0 + 64) x columns [0, BN) of a row-major f32 matrix with
 // `BN` columns into the swizzled bf16 tile `dst` (64 rows of BN * 2 bytes),
 // rounding to nearest-even on the way: the one rounding of the weight that the
-// tensor-core route adds (see dcn_fwd_body.cuh).
+// tensor-core route adds (see dcn_fwd_body.cuh).  Loading and storing are
+// apart so that a caller can put work between them.
 template <int BN>
-__device__ __forceinline__ void stage_weight_rows(const float* __restrict__ src, int row0,
-                                                  unsigned char* dst) {
+struct WeightRows {               // a thread's share of a 64 x BN f32 tile in flight
+  float4 v[(kChunkK * (BN / 8)) / kThreads][2];
+};
+
+template <int BN>
+__device__ __forceinline__ void load_weight_rows(const float* __restrict__ src, int row0,
+                                                 WeightRows<BN>& regs) {
   constexpr int kGroups = BN / 8;
 #pragma unroll
   for (int i = 0; i < (kChunkK * kGroups) / kThreads; ++i) {
@@ -96,11 +104,147 @@ __device__ __forceinline__ void stage_weight_rows(const float* __restrict__ src,
     const int r = item / kGroups;
     const int gq = item - r * kGroups;
     const float4* q = reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * BN + gq * 8);
-    const float4 lo = __ldg(q), hi = __ldg(q + 1);
+    regs.v[i][0] = __ldg(q);
+    regs.v[i][1] = __ldg(q + 1);
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void store_weight_rows(const WeightRows<BN>& regs, unsigned char* dst) {
+  constexpr int kGroups = BN / 8;
+#pragma unroll
+  for (int i = 0; i < (kChunkK * kGroups) / kThreads; ++i) {
+    const int item = threadIdx.x + kThreads * i;
+    const int r = item / kGroups;
+    const int gq = item - r * kGroups;
+    const float4 lo = regs.v[i][0], hi = regs.v[i][1];
     *reinterpret_cast<uint4*>(dst + swz(r, gq, BN * 2)) =
         make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
                    pack_bf16(hi.z, hi.w));
   }
+}
+
+template <int BN>
+__device__ __forceinline__ void stage_weight_rows(const float* __restrict__ src, int row0,
+                                                  unsigned char* dst) {
+  WeightRows<BN> regs;
+  load_weight_rows<BN>(src, row0, regs);
+  store_weight_rows<BN>(regs, dst);
+}
+
+
+// ------------------------------------------- the backward's product g·W_k^T
+constexpr int kGwStride = 72;   // f32 per row of the gW tile: 64 + 8, conflict-free
+
+// Column of the gW tile that holds channel `col`: columns 32..63 swap their
+// halves of 4, so that float4 reads of channel groups cg and cg + 4 of one row
+// miss each other's banks.
+__device__ __forceinline__ int gw_col(int col) { return col ^ ((col >> 3) & 4); }
+
+// Where K3 and K2's device-memory route keep gW: 64 rows of kGwStride f32,
+// channel c at column gw_col(c).
+struct GwTileStore {
+  float* sGW;
+  __device__ __forceinline__ void operator()(int row, int col, float2 v) const {
+    *reinterpret_cast<float2*>(sGW + row * kGwStride + gw_col(col)) = v;
+  }
+};
+
+// gW[p, c] = sum_o g[p, o] * W_k[c, o] for 64 pixels x 64 channels, by the 8
+// warps of a block: `g_base` is the shared address of row 0 of the 64 pixel
+// rows inside a swizzled bf16 tile with rows of BN values (the row's index in
+// the tile a multiple of 8), `w_base` that of W_k's 64 x BN tile; each thread
+// hands its 16 values to `store(row, channel, two neighbouring channels)`.
+// Warp tile 32 pixels x 16 channels.  No barrier inside.
+template <int BN, typename Store>
+__device__ __forceinline__ void gw_product_64(uint32_t g_base, uint32_t w_base, Store store) {
+  constexpr int kRowBytes = BN * 2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp & 1;       // 2 warps along the pixels, 4 along the channels
+  const int wn = warp >> 1;
+  float acc_g[2][2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc_g[mi][ni][r] = 0.f;
+#pragma unroll 4
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    uint32_t af[2][4], bf[4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int row = wm * 32 + mi * 16 + (lane & 15);
+      ldmatrix_x4(af[mi], g_base + swz(row, ks * 2 + (lane >> 4), kRowBytes));
+    }
+    // W_k is stored [n = c][k = o]: tiles (n 0-7, k 0-7), (n 0-7, k 8-15),
+    // (n 8-15, k 0-7), (n 8-15, k 8-15), no transpose
+    const int nrow = wn * 16 + (lane & 7) + ((lane >> 4) << 3);
+    ldmatrix_x4(bf, w_base + swz(nrow, ks * 2 + ((lane >> 3) & 1), kRowBytes));
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      mma_bf16(acc_g[mi][0], af[mi], bf[0], bf[1]);
+      mma_bf16(acc_g[mi][1], af[mi], bf[2], bf[3]);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = wm * 32 + mi * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        store(row, wn * 16 + ni * 8 + (lane & 3) * 2,
+              make_float2(acc_g[mi][ni][2 * half], acc_g[mi][ni][2 * half + 1]));
+    }
+}
+
+
+// The same product for one warp alone: 32 pixels (rows row0 .. row0 + 31 of the g
+// tile at `g_base`, row0 a multiple of 8) x all 64 channels.  Each A fragment is
+// read once and W_k once per 32 pixels, half the shared-memory traffic of
+// gw_product_64's 32 x 16 warp tiles, for 64 accumulators a thread.
+template <int BN, typename Store>
+__device__ __forceinline__ void gw_product_slab(uint32_t g_base, int row0, uint32_t w_base,
+                                                Store store) {
+  constexpr int kRowBytes = BN * 2;
+  const int lane = threadIdx.x & 31;
+  float acc_g[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc_g[mi][ni][r] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldmatrix_x4(af[mi], g_base + swz(row0 + mi * 16 + (lane & 15), ks * 2 + (lane >> 4), kRowBytes));
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      uint32_t bf[4];
+      const int nrow = nb * 16 + (lane & 7) + ((lane >> 4) << 3);
+      ldmatrix_x4(bf, w_base + swz(nrow, ks * 2 + ((lane >> 3) & 1), kRowBytes));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16(acc_g[mi][2 * nb], af[mi], bf[0], bf[1]);
+        mma_bf16(acc_g[mi][2 * nb + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + mi * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        store(row, ni * 8 + (lane & 3) * 2,
+              make_float2(acc_g[mi][ni][2 * half], acc_g[mi][ni][2 * half + 1]));
+    }
 }
 
 

@@ -11,14 +11,19 @@
         offset/mask conv output.  It shares its body with `dcn_fwd` through
         csrc/dcn_fwd_body.cuh.
 
-The forward body (K1 and K4) and K3 each have two routes, and `dcn_route`
-picks one from the dtype and the widths alone: "tensor" (bf16 products on
-the tensor cores, wgmma in the forward and mma.sync in K3: bf16 operands,
-Cin a multiple of 64, Cout 64, 128 or 256, which covers every DeformBlock
-of the model) or "cuda_core" (f32 FMA: f32 operands and every other
-width).  `fwd_plan` and `dcoord_plan` size the
-tensor-core launches (tiles, splits of the reduction, dynamic shared
-memory); the C launchers follow them.  K2 runs on CUDA cores only.
+The forward body (K1 and K4), K2 and K3 each have two routes, and
+`dcn_route` picks one from the dtype and the widths alone: "tensor" (bf16
+products on the tensor cores, wgmma in the forward and mma.sync in K2 and
+K3: bf16 operands, Cin a multiple of 64, Cout 64, 128 or 256, which covers
+every DeformBlock of the model) or "cuda_core" (f32 FMA: f32 operands and
+every other width).  `fwd_plan`, `dx_plan` and `dcoord_plan` size the
+tensor-core launches (tiles or patches, splits of the reduction, dynamic
+shared memory); the C launchers follow them and refuse a plan whose bytes
+are not their own.  On its tensor-core route K2 has two bodies, and
+`dx_plan` picks from the window and Cout alone: "patch" keeps the scatter
+in the block and writes d_x once in g's dtype (the model's window R = 1 at
+Cout 64), "tile" adds to an f32 d_x in device memory (exact mode, other
+windows, Cout 128 and 256).
 
 Each source is compiled with nvcc into a shared library with a plain C
 interface at first use, under `side_tpu_torch/_build/` (git-ignored), and
@@ -31,10 +36,11 @@ imported or built when this module is imported.
 `DCN_FWD_OM(x, om, weight, bias, radius)` launch their kernel on
 PyTorch's current stream for CUDA tensors and raise on anything they cannot
 take; they never fall back to the plain version, and a build or launch
-error never changes the route.  Each counts its launches in `.launches`,
-and the three with a tensor-core route count those that took it in
-`.tensor_core_launches`.  Their `cuda_core=True` argument is the test entry
-that times the CUDA-core body on operands the tensor-core route would take.
+error never changes the route.  Each counts its launches in `.launches`
+and those that took the tensor-core route in `.tensor_core_launches`.
+Their `cuda_core=True` argument is the test entry that times the CUDA-core
+body on operands the tensor-core route would take (K2's `scatter="tile"`
+likewise the device-memory scatter on operands the patch body would take).
 """
 
 from __future__ import annotations
@@ -72,13 +78,15 @@ class CudaLibrary:
     loaded with ctypes; `signatures` gives each launch function's argtypes,
     `error_fn` names the function that turns an error code into text, and
     `headers` the csrc/ files the source includes (the hash covers them, so
-    an edited header is never served by a stale library)."""
+    an edited header is never served by a stale library); `defines` are
+    macros of a measurement build (tools/dx_split.py)."""
 
     def __init__(self, name: str, signatures, error_fn: str,
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str] = (), defines: Sequence[str] = ()):
         self.name = name
         self.source = _PKG / "csrc" / f"{name}.cu"
         self.headers = [_PKG / "csrc" / h for h in headers]
+        self.flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
         self.signatures = signatures
         self.error_fn = error_fn
         self._lib = None
@@ -87,7 +95,7 @@ class CudaLibrary:
     def library_path(self) -> Path:
         digest = hashlib.sha256(
             b"".join(p.read_bytes() for p in [self.source, *self.headers]) +
-            " ".join(NVCC_FLAGS).encode()).hexdigest()
+            " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
 
     def start_build(self):
@@ -99,7 +107,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         proc.output_path = tmp
         return proc
@@ -140,10 +148,11 @@ _MMA_HEADERS = ("dcn_mma.cuh",)
 FWD_LIB = CudaLibrary("dcn_fwd", {
     "dcn_fwd_launch": [_VP] * 7 + [_CI] * 10 + [_VP]}, "dcn_error_string",
     headers=("dcn_fwd_body.cuh", *_MMA_HEADERS))
-BWD_LIB = CudaLibrary("dcn_bwd", {
-    "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 7 + [_VP],
-    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 10 + [_VP]},
-    "dcn_bwd_error_string", headers=_MMA_HEADERS)
+BWD_SIGNATURES = {
+    "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 11 + [_VP],
+    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 10 + [_VP]}
+BWD_LIB = CudaLibrary("dcn_bwd", BWD_SIGNATURES, "dcn_bwd_error_string",
+                      headers=_MMA_HEADERS)
 OM_LIB = CudaLibrary("dcn_fwd_om", {
     "dcn_fwd_om_launch": [_VP] * 6 + [_CI] * 10 + [_VP]},
     "dcn_om_error_string", headers=("dcn_fwd_body.cuh", *_MMA_HEADERS))
@@ -216,6 +225,70 @@ def dcoord_plan(P: int, C: int, Cout: int) -> dict:
     return {"combos": combos, "pixel_tiles": n_pt, "slices": slices,
             "blocks": combos * slices, "smem_bytes": smem,
             "blocks_per_sm": per_sm}
+
+
+DX_PATCH_W = 16                # columns of a d_x patch
+DX_PATCH_RADIUS = 1            # the window and the width at which keeping the
+DX_PATCH_COUT = 64             # scatter in the block pays (PERF.md)
+
+
+def _dx_patch_smem(Cout: int, patch_h: int, halo: int):
+    """(region pixels, staged g rows, bytes) of csrc/dcn_bwd.cu's
+    `dx_patch_smem_bytes`."""
+    region = (patch_h + 2 * halo) * (DX_PATCH_W + 2 * halo)
+    g_rows = -(-region // 32) * 32
+    smem = (g_rows * Cout * 2 + 64 * Cout * 2 + region * 72 * 4
+            + (2 * halo - 1) ** 2 * patch_h * DX_PATCH_W * 4)
+    return region, g_rows, smem
+
+
+def _dx_tile_plan(P: int, C: int, Cout: int) -> dict:
+    smem = 2 * 64 * Cout * 2 + 64 * 72 * 4 + 64 * 9 * 32
+    tiles = -(-P // 64)
+    blocks = tiles * (C // 64)
+    splits = 1
+    if blocks < SM_COUNT:
+        per = -(-9 // min(9, -(-SM_COUNT // blocks)))
+        splits = -(-9 // per)           # no block without a tap
+    return {"scatter": "tile", "patch_h": 0, "halo": 0, "tiles": tiles,
+            "tap_splits": splits, "blocks": blocks * splits,
+            "smem_bytes": smem, "blocks_per_sm": _blocks_per_sm(smem)}
+
+
+def dx_plan(B: int, H: int, W: int, C: int, Cout: int, radius: int) -> dict:
+    """Launch plan of the tensor-core K2 (csrc/dcn_bwd.cu), whose blocks
+    each own 64 input channels and loop over the 9 taps.
+
+    "patch" (radius 1, the model's window, and Cout = 64): a block owns `patch_h` x 16
+    pixels of one image's d_x in registers and forms g·W_k^T for the patch
+    grown by `halo` = radius + 1 pixels (`region` output pixels; `g_rows`
+    rows of g staged, with the padding to a warp's 32 rows); it writes d_x
+    once, in g's dtype.  The patch is 8 rows, or 4 where only that lets two
+    blocks share an SM or where 8 rows would leave an SM without a block.
+    "tile" (exact mode, other windows, and Cout 128 and 256, where the
+    product over the halo costs more than the device-memory scatter it
+    saves): a block owns 64 output pixels and adds to an f32 d_x in device
+    memory (`patch_h` 0); where that leaves SMs without a block the nine
+    taps are split over `tap_splits` blocks."""
+    if radius != DX_PATCH_RADIUS or Cout != DX_PATCH_COUT:
+        return _dx_tile_plan(B * H * W, C, Cout)
+    halo = radius + 1
+    plans = []
+    for patch_h in (8, 4):
+        region, g_rows, smem = _dx_patch_smem(Cout, patch_h, halo)
+        tiles = B * -(-H // patch_h) * -(-W // DX_PATCH_W)
+        plans.append({"scatter": "patch", "patch_h": patch_h, "halo": halo,
+                      "region": region, "g_rows": g_rows, "tiles": tiles,
+                      "tap_splits": 1,
+                      "blocks": tiles * (C // 64), "smem_bytes": smem,
+                      "blocks_per_sm": _blocks_per_sm(smem)})
+    tall, short = plans
+    if tall["smem_bytes"] > SMEM_PER_BLOCK:
+        return short
+    if (short["blocks_per_sm"] > tall["blocks_per_sm"]
+            or tall["blocks"] < SM_COUNT <= short["blocks"]):
+        return short
+    return tall
 
 
 def build_all(libraries: Optional[Sequence[CudaLibrary]] = None):
@@ -291,32 +364,58 @@ def _forward_route(x: torch.Tensor, C: int, Cout: int, cuda_core: bool):
 
 class DcnBackwardDx:
     """K2 (`dcn_bwd_dx_launch`): d_x of the DCN forward, with a launch
-    counter."""
+    counter, and a counter of the launches that took the tensor-core
+    route."""
 
-    def __init__(self):
+    def __init__(self, lib: CudaLibrary = BWD_LIB):
+        self.lib = lib
         self.launches = 0
+        self.tensor_core_launches = 0
 
     def __call__(self, g: torch.Tensor, offset: torch.Tensor,
                  mask: torch.Tensor, weight: torch.Tensor,
-                 radius: int) -> torch.Tensor:
+                 radius: int, cuda_core: bool = False,
+                 scatter: Optional[str] = None) -> torch.Tensor:
         """g (B,H,W,Cout) bf16|f32, the cotangent of the forward's output;
         offset, mask, weight as for the forward.  Returns d_x (B,H,W,C) in
-        g.dtype (the kernel sums into f32 and the result is cast once)."""
+        g.dtype, rounded once from an f32 sum.  The route follows
+        `dcn_route`, and on the tensor-core route `dx_plan` says where the
+        scatter happens: in shared memory ("patch": the kernel writes d_x
+        itself) or in device memory ("tile": the kernel adds to a zeroed
+        f32 buffer, cast here, as on the CUDA-core route).  `cuda_core=True`
+        and `scatter="tile"` (tests and timing only) run the CUDA-core body
+        and the device-memory scatter whatever the operands."""
         C = weight.shape[2] if weight.dim() == 4 else -1
         _check(g, offset, mask, weight, x_shape=(*g.shape[:3], C))
         if tuple(g.shape[3:]) != (weight.shape[-1],):
             raise ValueError(f"g must end in Cout = {weight.shape[-1]}, got "
                              f"{tuple(g.shape)}")
+        if scatter not in (None, "tile"):
+            raise ValueError(f"scatter must be None or 'tile', got {scatter!r}")
         B, H, W, Cout = g.shape
-        lib = BWD_LIB.load()
-        dx = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+        lib = self.lib.load()
+        route = "cuda_core" if cuda_core else dcn_route(g.dtype, C, Cout)
+        patch_h = smem = 0
+        splits = 1
+        if route == "tensor":
+            plan = dx_plan(B, H, W, C, Cout,
+                           -1 if scatter == "tile" else int(radius))
+            patch_h, smem = plan["patch_h"], plan["smem_bytes"]
+            splits = plan["tap_splits"]
+        if patch_h:
+            dx = torch.empty((B, H, W, C), dtype=g.dtype, device=g.device)
+        else:
+            dx = torch.zeros((B, H, W, C), dtype=torch.float32,
+                             device=g.device)
         err = lib.dcn_bwd_dx_launch(
             g.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), dx.data_ptr(), B, H, W, C, Cout, int(radius),
-            _dtype_code(g), _stream(g.device))
-        BWD_LIB.check(err, "dcn_bwd_dx")
+            _dtype_code(g), _ROUTE_CODE[route], patch_h, splits, smem,
+            _stream(g.device))
+        self.lib.check(err, "dcn_bwd_dx")
         self.launches += 1
-        return dx.to(g.dtype)
+        self.tensor_core_launches += route == "tensor"
+        return dx if patch_h else dx.to(g.dtype)
 
 
 class DcnBackwardDcoord:

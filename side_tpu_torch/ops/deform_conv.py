@@ -210,6 +210,58 @@ def deform_conv_mma_model(x: torch.Tensor, offset: torch.Tensor,
     return out.reshape(B, H, W, Cout).to(x.dtype)
 
 
+def dcn_dx_patch_model(g: torch.Tensor, offset: torch.Tensor,
+                       mask: torch.Tensor, weight: torch.Tensor, radius: int,
+                       patch_h: int, patch_w: int = 16) -> torch.Tensor:
+    """A model of the formulation of K2's patch route (csrc/dcn_bwd.cu
+    `dcn_bwd_dx_patch_kernel`), for tests only: d_x of the windowed DCN
+    assembled patch by patch.  Each `patch_h` x `patch_w` patch of d_x takes
+    the scatter of the output pixels of the patch grown by radius + 1 on
+    every side, and only of those; whatever they send outside the patch is
+    dropped (a neighbouring patch computes it again).  f32 throughout;
+    returns (B, H, W, Cin) f32."""
+    if radius < 0:
+        raise ValueError("the patch route is the windowed function's")
+    B, H, W, _ = g.shape
+    C = weight.shape[2]
+    halo = radius + 1
+    dx = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    for py0 in range(0, H, patch_h):
+        for px0 in range(0, W, patch_w):
+            ys = torch.arange(max(py0 - halo, 0),
+                              min(py0 + patch_h + halo, H), device=g.device)
+            xs = torch.arange(max(px0 - halo, 0),
+                              min(px0 + patch_w + halo, W), device=g.device)
+            g_r = g[:, ys][:, :, xs].float()
+            off_r = offset[:, ys][:, :, xs].float()
+            m_r = mask[:, ys][:, :, xs].float()
+            acc = torch.zeros((B, patch_h, patch_w, C), dtype=torch.float32,
+                              device=g.device)
+            bidx = torch.arange(B, device=g.device)[:, None, None].expand(
+                B, len(ys), len(xs))
+            for k in range(9):
+                gw = g_r @ weight[k // 3, k % 3].float().T
+                d = off_r[..., k, :].clamp(-radius, radius)
+                base = torch.floor(d)
+                fy, fx = (d - base).unbind(-1)
+                y0 = ys[None, :, None] + (k // 3 - 1) + base[..., 0].long()
+                x0 = xs[None, None, :] + (k % 3 - 1) + base[..., 1].long()
+                for a, b, cw in ((0, 0, (1 - fy) * (1 - fx)),
+                                 (0, 1, (1 - fy) * fx),
+                                 (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+                    yy, xx = y0 + a, x0 + b
+                    inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+                    ly, lx = yy - py0, xx - px0
+                    keep = (inside & (ly >= 0) & (ly < patch_h)
+                            & (lx >= 0) & (lx < patch_w))
+                    term = (m_r[..., k] * cw)[..., None] * gw
+                    acc.index_put_((bidx[keep], ly[keep], lx[keep]),
+                                   term[keep], accumulate=True)
+            dx[:, py0:py0 + patch_h, px0:px0 + patch_w] = \
+                acc[:, :H - py0, :W - px0]
+    return dx
+
+
 def deform_conv2d_windowed(x, offset, mask, weight, bias=None, radius=1):
     """Offsets clamped to [-radius, radius] (side_tpu deform_conv2d_windowed)."""
     return deform_conv_plain(x, offset, mask, weight, bias, radius)

@@ -25,8 +25,11 @@ from .dcn_cuda import CudaLibrary, _dtype_code, _stream
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 GATHER_LIB = CudaLibrary("gather_bilinear", {
-    "gather_bilinear_launch": [_VP] * 6 + [ctypes.c_longlong] + [_CI] * 5
-    + [_VP]}, "gather_error_string")
+    "gather_bilinear_launch": [_VP] * 6 + [ctypes.c_longlong] + [_CI] * 6
+    + [_VP],
+    "gather_l2_read_launch": [_VP, ctypes.c_longlong, _CI, _VP, _VP]},
+    "gather_error_string")
+WARP_BODY_GROUPS = (1, 2, 4, 8, 16, 32)   # C / 8 the warp-chunk kernel takes
 
 
 def gather_bilinear_plain(x: torch.Tensor, y0: torch.Tensor,
@@ -54,6 +57,13 @@ def gather_bilinear_plain(x: torch.Tensor, y0: torch.Tensor,
     return acc.to(x.dtype).reshape(-1, C)
 
 
+def gather_body(C: int) -> str:
+    """Which kernel of csrc/gather_bilinear.cu serves a width: "warp" (a warp
+    takes 32 samples at a time; C / 8 a power of two up to 32) or "thread"
+    (one thread per sample and 8 channels, any C % 8 == 0)."""
+    return "warp" if C % 8 == 0 and C // 8 in WARP_BODY_GROUPS else "thread"
+
+
 class GatherBilinearKernel:
     """`gather_bilinear_launch` with a launch counter."""
 
@@ -61,10 +71,13 @@ class GatherBilinearKernel:
         self.launches = 0
 
     def __call__(self, x: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
-                 fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+                 fy: torch.Tensor, fx: torch.Tensor,
+                 per_thread: bool = False) -> torch.Tensor:
         """x (B,H,W,C) bf16|f32 with C a multiple of 8; y0, x0 int32 in
         [0, H-1] / [0, W-1] and fy, fx f32, each of B*P elements, contiguous.
-        Returns (B*P, C) in x.dtype."""
+        Returns (B*P, C) in x.dtype.  The kernel follows `gather_body`;
+        `per_thread=True` (tests and timing only) runs the one-thread-per-
+        (sample, 8 channels) kernel, the earlier design, at any width."""
         if x.device.type != "cuda":
             return gather_bilinear_plain(x, y0, x0, fy, fx)
         if x.dim() != 4:
@@ -91,17 +104,53 @@ class GatherBilinearKernel:
                                  f"({x.device}), got {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if H * W * C >= 2 ** 31:
-            raise ValueError("one image must hold fewer than 2**31 values")
+        if H * W * C >= 2 ** 31 or B * H * W >= 2 ** 29 or S >= 2 ** 31:
+            raise ValueError("the gather kernel takes fewer than 2**31 values "
+                             "an image, 2**29 pixels and 2**31 samples")
+        body = "thread" if per_thread else gather_body(C)
         lib = GATHER_LIB.load()
         out = torch.empty((S, C), dtype=x.dtype, device=x.device)
         err = lib.gather_bilinear_launch(
             x.data_ptr(), y0.data_ptr(), x0.data_ptr(), fy.data_ptr(),
             fx.data_ptr(), out.data_ptr(), S, S // B, H, W, C,
-            _dtype_code(x), _stream(x.device))
+            _dtype_code(x), int(body == "warp"), _stream(x.device))
         GATHER_LIB.check(err, "gather_bilinear")
         self.launches += 1
         return out
+
+
+def l2_read_ms(x: torch.Tensor, total_bytes: int, reps: int = 20):
+    """Device time (median of `reps`, CUDA events) of `gather_l2_read_kernel`
+    reading x's bytes again and again until about `total_bytes` have come
+    out of L2: the yardstick for what the gather's corner reads can reach.
+    Returns (ms of one launch, bytes it read)."""
+    import statistics
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("x must be a contiguous CUDA tensor")
+    nbytes = x.numel() * x.element_size()
+    if nbytes % 16 or x.data_ptr() % 16:
+        raise ValueError("x must hold a multiple of 16 bytes, 16-byte aligned")
+    passes = max(1, round(total_bytes / nbytes))
+    lib = GATHER_LIB.load()
+    out = torch.zeros(4, dtype=torch.int32, device=x.device)
+
+    def launch():
+        GATHER_LIB.check(lib.gather_l2_read_launch(
+            x.data_ptr(), nbytes, passes, out.data_ptr(),
+            _stream(x.device)), "gather_l2_read")
+
+    for _ in range(3):
+        launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), passes * nbytes
 
 
 GATHER_BILINEAR = GatherBilinearKernel()

@@ -14,14 +14,20 @@ to the forward's tolerances, the gather K5 to 1e-6 relative in f32 (fused
 multiply-add contraction) and one bf16 ulp (plus that f32 noise where the
 four terms cancel).
 
-The forward body (K1, K4) and K3 have two routes (ops/dcn_cuda.py:dcn_route):
-bf16 at Cin % 64 == 0 and Cout in {64, 128, 256} runs on the tensor cores,
-everything else (f32, and the odd widths of `_case`) on CUDA cores.  Both are
-held to the same tolerances; the tensor-core route also rounds the weight to
-bf16, which stays inside them (tests/test_torch_dcn_mma.py).  Outputs that
-sum with f32 atomics (d_weight on both routes; d_offset and d_mask on the
-tensor-core route, over Cin/64 partial sums) may differ between two runs by
-the order of the additions: bounded below at 1e-5 of each output's max.
+The forward body (K1, K4), K2 and K3 have two routes (ops/dcn_cuda.py:
+dcn_route): bf16 at Cin % 64 == 0 and Cout in {64, 128, 256} runs on the
+tensor cores, everything else (f32, and the odd widths of `_case`) on CUDA
+cores.  Both are held to the same tolerances; the tensor-core route also
+rounds the weight to bf16, which stays inside them
+(tests/test_torch_dcn_mma.py).  On its tensor-core route K2 keeps the scatter
+in the block where `dx_plan` says "patch" (R = 1 at Cout 64: no atomics,
+the same bits every run) and adds to device memory where it says
+"tile"; d_x is also compared over the image-border and patch-seam pixels
+alone.  Outputs that sum with f32 atomics (d_weight on both routes; d_offset
+and d_mask on the tensor-core route, over Cin/64 partial sums) may differ
+between two runs by the order of the additions: bounded below at 1e-5 of each
+output's max.  K5 has two bodies (ops/gather_cuda.py:gather_body), both held
+to the same tolerance.
 """
 
 import numpy as np
@@ -31,7 +37,7 @@ import torch
 from side_tpu_torch.config import Config
 from side_tpu_torch.ops import deform_conv as tdc
 from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX, DCN_FWD,
-                                         DCN_FWD_OM, dcn_route)
+                                         DCN_FWD_OM, dcn_route, dx_plan)
 from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
                                             gather_bilinear_plain)
 
@@ -245,7 +251,8 @@ def test_train_step_on_card_launches_each_kernel_16_times(card):
 # the reduction split over blocks; wide: Cout 256 (64-pixel tiles) and Cin 128
 MMA_CASES = {"ragged": dict(B=3, H=13, W=37, C=64, Cout=64),
              "small": dict(B=1, H=5, W=8, C=64, Cout=128),
-             "wide": dict(B=2, H=9, W=21, C=128, Cout=256)}
+             "wide": dict(B=2, H=9, W=21, C=128, Cout=256),
+             "deep": dict(B=2, H=11, W=35, C=128, Cout=64)}
 
 
 def _mma_case(device, name, seed):
@@ -355,6 +362,107 @@ def test_atomic_sums_spread_between_runs_is_bounded(card):
         again = DCN_BWD_DCOORD(x, g, off, mask, w, 1)
         for a, c in zip(first, again):
             assert float((a - c).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+# ----------------------------------------------- K2 on the tensor-core route
+def _seam_mask(H, W, patch_h, device):
+    """Pixels on the image border or on the first / last row or column of a
+    d_x patch (patch_h x 16; 64-pixel tiles have no seams in the image)."""
+    ys = torch.arange(H, device=device)
+    xs = torch.arange(W, device=device)
+    on_y = (ys == 0) | (ys == H - 1)
+    on_x = (xs == 0) | (xs == W - 1)
+    if patch_h:
+        on_y |= (ys % patch_h == 0) | (ys % patch_h == patch_h - 1)
+        on_x |= (xs % 16 == 0) | (xs % 16 == 15)
+    return on_y[:, None] | on_x[None, :]
+
+
+@pytest.mark.parametrize("offsets", ["random", "at_radius", "far_outside"])
+@pytest.mark.parametrize("radius", [1, 2, 0, -1])
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_k2_matches_plain_autograd_on_card(card, name, radius,
+                                                       offsets):
+    """d_x of the tensor-core K2 (the patch route for R = 1 at Cout 64, the
+    tile route elsewhere) against autograd of the plain version: over the
+    whole output and over the border and patch-seam pixels alone, with
+    random offsets, every offset at exactly +-R and offsets far outside
+    the window; the CUDA-core body and the tile route on the same operands
+    through the test entries."""
+    x, off, mask, w, b, g = _mma_case(card, name, seed=30)
+    B, H, W, C = x.shape
+    if offsets == "at_radius":
+        off = torch.where(off > 0, 1.0, -1.0) * abs(radius)
+    elif offsets == "far_outside":
+        off = off * 8.0
+    plan = dx_plan(B, H, W, C, w.shape[-1], radius)
+    patch = radius == 1 and w.shape[-1] == 64
+    assert plan["scatter"] == ("patch" if patch else "tile")
+    before = (DCN_BWD_DX.launches, DCN_BWD_DX.tensor_core_launches)
+    got = DCN_BWD_DX(g, off, mask, w, radius)
+    assert (DCN_BWD_DX.launches, DCN_BWD_DX.tensor_core_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _grads(lambda *a: tdc.deform_conv_plain(*a, radius),
+                  x, off, mask, w, b, g)[0]
+    old = DCN_BWD_DX(g, off, mask, w, radius, cuda_core=True)
+    tile = DCN_BWD_DX(g, off, mask, w, radius, scatter="tile")
+    assert DCN_BWD_DX.tensor_core_launches == before[1] + 2
+    seam = _seam_mask(H, W, plan["patch_h"], card)
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    for a in (got, old, tile):
+        assert a.dtype == torch.bfloat16 and a.shape == want.shape
+        diff = (a.float() - want.float()).abs()
+        assert float(diff.max()) / scale <= BWD_TOL[torch.bfloat16]
+        seam_scale = float(want.float()[:, seam].abs().max())
+        assert float(diff[:, seam].max()) / seam_scale <= BWD_TOL[
+            torch.bfloat16]
+    if plan["scatter"] == "patch":
+        # no atomics on the patch route: the same bits every run
+        assert torch.equal(got, DCN_BWD_DX(g, off, mask, w, radius))
+
+
+def test_k2_route_counter_follows_dtype_and_widths(card):
+    for dtype, kw, tensor in ((torch.float32, MMA_CASES["ragged"], 0),
+                              (torch.bfloat16, dict(C=40, Cout=72), 0),
+                              (torch.bfloat16, dict(C=64, Cout=72), 0),
+                              (torch.bfloat16, MMA_CASES["wide"], 1)):
+        x, off, mask, w, b = _case(card, seed=32, **kw)
+        g = torch.randn(x.shape[:3] + (w.shape[-1],), device=card).to(dtype)
+        before = (DCN_BWD_DX.launches, DCN_BWD_DX.tensor_core_launches)
+        d_x = DCN_BWD_DX(g, off, mask, w, 1)
+        assert (DCN_BWD_DX.launches, DCN_BWD_DX.tensor_core_launches) == (
+            before[0] + 1, before[1] + tensor)
+        assert d_x.dtype == dtype and bool(torch.isfinite(d_x).all())
+
+
+def test_k2_launcher_refuses_a_foreign_plan(card):
+    """The C launcher checks the plan's shared-memory bytes, patch height
+    and tap split against its own and launches nothing otherwise."""
+    from side_tpu_torch.ops.dcn_cuda import BWD_LIB
+    _, off, mask, w, _, g = _mma_case(card, "ragged", seed=34)
+    B, H, W, Cout = g.shape
+    plan = dx_plan(B, H, W, 64, Cout, 1)
+    tile = dx_plan(B, H, W, 64, Cout, -1)
+    dx = torch.zeros((B, H, W, 64), dtype=torch.float32, device=card)
+    lib = BWD_LIB.load()
+
+    def launch(radius, patch_h, splits, smem):
+        return lib.dcn_bwd_dx_launch(
+            g.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            dx.data_ptr(), B, H, W, 64, Cout, radius, 1, 1, patch_h, splits,
+            smem, torch.cuda.current_stream().cuda_stream)
+
+    assert launch(1, plan["patch_h"], 1, plan["smem_bytes"] + 16) != 0
+    assert launch(1, 5, 1, plan["smem_bytes"]) != 0
+    assert launch(2, plan["patch_h"], 1, plan["smem_bytes"]) != 0
+    assert launch(-1, 0, 1, tile["smem_bytes"] + 16) != 0
+    assert launch(-1, 0, 8, tile["smem_bytes"]) != 0     # an empty split
+    torch.cuda.synchronize()
+    assert float(dx.abs().max()) == 0.0
+    assert launch(-1, 0, 1, tile["smem_bytes"]) == 0
+    torch.cuda.synchronize()
+    assert float(dx.abs().max()) > 0.0
 
 
 # ------------------------------------------------- K4: fused offset/mask DCN
@@ -500,6 +608,32 @@ def test_gather_kernel_matches_plain_on_card(card, dtype):
         # multiply-adds) where the four terms cancel
         ulp = want.float().abs() * 2.0 ** -7
         assert bool((diff <= ulp + 1e-6 * want.float().abs().max()).all())
+
+
+@pytest.mark.parametrize("C,P", [(8, 501), (64, 333), (256, 77), (24, 501)],
+                         ids=["C8", "C64", "C256", "C24_thread_body"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gather_bodies_match_plain_on_card(card, dtype, C, P):
+    """The warp-chunk kernel at its narrowest and widest width (C = 8: a
+    warp instruction covers 32 samples; C = 256: one) with sample counts that
+    are no multiple of a warp's 32-sample chunk or of the samples a thread
+    has in flight, the one-thread-per-(sample, 8 channels) kernel at a
+    width only it takes (C = 24), and the latter through the test entry on
+    the former's operands."""
+    from side_tpu_torch.ops.gather_cuda import gather_body
+    args = _gather_case(card, dtype, seed=13, C=C, P=P)
+    assert gather_body(C) == ("thread" if C == 24 else "warp")
+    want = gather_bilinear_plain(*args)
+    for kw in ({}, {"per_thread": True}):
+        got = GATHER_BILINEAR(*args, **kw)
+        assert got.dtype == dtype and got.shape == want.shape
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert float(diff.max() / want.abs().max()) <= 1e-6
+        else:
+            ulp = want.float().abs() * 2.0 ** -7
+            assert bool((diff <= ulp + 1e-6 * want.float().abs().max()).all())
 
 
 @pytest.mark.parametrize("fault", ["int64_y0", "c_not_multiple_of_8",
