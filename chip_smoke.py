@@ -9,9 +9,12 @@ Phases, each of which must pass:
      dcn_fwd_om.cu and gather_bilinear.cu, one nvcc each, started together);
   2. the forward kernel against its plain PyTorch version on the card at the
      7 distinct DeformBlock shapes of the serving path (B=2), in bf16 and
-     f32 with R=1, and R=-1 (exact) at one shape, and at two ragged bf16
+     f32 with R=1, and R=-1 (exact) at one shape, at two ragged bf16
      shapes (B=3, 13x37: one the tensor-core route takes, one with Cin=24
-     that it does not); per shape the route taken, times (also with all
+     that it does not), and at the 7 DeformBlock shapes of the acceptance
+     protocol's 128x384 input (B=8, bf16 and f32, R=1, offsets far outside
+     the window: most are a tile or a few, ragged in both directions);
+     per shape the route taken, times (also with all
      offsets 0), bound, F.conv2d and, on the tensor-core route, the time of
      the CUDA-core body (the earlier design) on the same operands;
   3. the serving path: Detector(Config()) at full width (384x1280, bf16,
@@ -30,7 +33,9 @@ Phases, each of which must pass:
      version's (phase 2's tolerance); the two ragged bf16 shapes of phase
      2 (13x37: no multiple of a d_x patch); bf16 at R=2 and R=-1 on a
      Cout-64 shape and the ragged one, and with every offset at exactly
-     +-R and with offsets far outside the window; the route, times, plain
+     +-R and with offsets far outside the window; the 7 shapes of the
+     acceptance protocol (128x384, B=8, bf16 and f32, R=1, offsets far
+     outside the window); the route, times, plain
      times, bounds and, on the tensor-core route, the CUDA-core body's
      time; for K2 also where the scatter happens (`scatter`: "patch" in
      shared memory and registers, "tile" in device memory), the
@@ -80,7 +85,26 @@ Phases, each of which must pass:
      scenes frame by frame (eval_batch 1, unfused) and the rows of the two
      runs compared (VAL_MATCH_RULE); ms per image for eval_batch 1 and 4,
      fused and unfused; launches and device busy share of one group and of
-     one frame.
+     one frame;
+ 11. a trained checkpoint (side_tpu_torch.tools.acceptance_16's 16-scene
+     protocol, bf16, 128x384, the flagship at full width, seed 0): train on
+     the fixed 16-scene fixture held in memory (4 pairs a step, 240 epochs
+     = 960 steps), detect on the same scenes from the checkpoint written
+     (eval_batch 1, with and without the dense alignment), write KITTI
+     result files, score them with the C++ evaluator.  Every training step
+     launches the forward kernel, K2 and K3 16 times each and every
+     detection frame the forward kernel 16 times, all on the tensor-core
+     route.  Fails unless every GT object is detected with its class and
+     the injected convention bugs (ry_flip, depth_sign: AP3D and APBEV;
+     class_shift: car 2D AP) take their APs to exactly 0.0 with the 2D AP
+     unchanged.  The JAX tests' quality floors (AP3D / APBEV >= 5, IoU,
+     z_cv, ry) are not held here: they are the acceptance, the tool's
+     --check, which is open (ROADMAP.md Queue 3).  On the trained
+     checkpoint, eval_batch 4 fused (16 dcn_fwd_om launches a group)
+     against eval_batch 1 unfused: VAL_MATCH_RULE, and every row above
+     peak_thresh of either run has its partner above peak_thresh in the
+     other.  Prints each variant's summary line, the per-object errors,
+     seconds per epoch, ms per step and the phase's time.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -244,21 +268,30 @@ def _bound_ms(cin, h, w, cout, dtype, batch=BATCH):
 def phase_kernels() -> dict:
     from side_tpu_torch.ops.dcn_cuda import DCN_FWD
     from side_tpu_torch.ops.deform_conv import deform_conv_plain
+    from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    cases = [(shape, n, dtype, 1, BATCH) for shape, n in SERVING_SHAPES
+    cases = [(shape, n, dtype, 1, BATCH, "random")
+             for shape, n in SERVING_SHAPES
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, BATCH)
+    cases += [(SERVING_SHAPES[4][0], 0, dtype, -1, BATCH, "random")
               for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH)
+    cases += [(shape, 0, torch.bfloat16, 1, RAGGED_BATCH, "random")
               for shape in RAGGED_SHAPES]
+    # the acceptance protocol's shapes, offsets far outside the window (as
+    # a trained model's are)
+    cases += [(shape, 0, dtype, 1, TRAIN_BATCH, "far_outside")
+              for shape in PROTOCOL_SHAPES
+              for dtype in (torch.bfloat16, torch.float32)]
     with torch.inference_mode():
-        for (cin, h, w, cout), n, dtype, radius, batch in cases:
+        for (cin, h, w, cout), n, dtype, radius, batch, offsets in cases:
             x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen,
                                              batch)
+            if offsets == "far_outside":
+                off = off * 8.0
             got = DCN_FWD(x, off, mask, wt, bias, radius)
             ref = deform_conv_plain(x, off, mask, wt, bias, radius)
             torch.cuda.synchronize()
@@ -281,7 +314,8 @@ def phase_kernels() -> dict:
                                               radius))
             row = {"batch": batch, "cin": cin, "h": h, "w": w, "cout": cout,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "per_frame": n, "route": route,
+                   "radius": radius, "offsets": offsets, "per_frame": n,
+                   "route": route,
                    "cuda_core_ms": earlier, "regular_grid_ms": grid_ms,
                    "max_abs_err": diff, "max_rel_err": rel,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -416,6 +450,7 @@ def phase_backward_kernels() -> dict:
     from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
                                              DCN_FWD, dcn_route, dx_plan)
     from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
+    from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
@@ -440,6 +475,11 @@ def phase_backward_kernels() -> dict:
               for offsets in ("at_radius", "far_outside")
               for shape, batch in ((SERVING_SHAPES[3][0], TRAIN_BATCH),
                                    (RAGGED_SHAPES[0], RAGGED_BATCH))]
+    # the acceptance protocol's training shapes (128x384, B=8), offsets far
+    # outside the window
+    cases += [(shape, 0, dtype, 1, TRAIN_BATCH, "far_outside")
+              for shape in PROTOCOL_SHAPES
+              for dtype in (torch.bfloat16, torch.float32)]
     for (cin, h, w, cout), n, dtype, radius, batch, offsets in cases:
         x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
         if offsets == "at_radius":
@@ -891,6 +931,51 @@ def _match_rows(a: np.ndarray, ca: np.ndarray, b: np.ndarray,
     return np.flatnonzero(ok), j[ok]
 
 
+def _compare_val_runs(rec_b, rec1, n_frames: int, cfg) -> dict:
+    """The rows of a batched fused run (`rec_b`) against those of the
+    frame-by-frame unfused run (`rec1`) over the same frames, under
+    VAL_MATCH_RULE; also, per run, the rows above peak_thresh that have no
+    partner above peak_thresh in the other run (`unpartnered`)."""
+    check(all(g["dcn_fwd"] == 16 and g["dcn_fwd_om"] == 0 and
+              g["dcn_fwd_tensor_core"] == 16
+              for g in rec1.group_launches) and
+          len(rec1.group_launches) == n_frames,
+          f"eval_batch 1 unfused launched {rec1.group_launches}")
+    rows_b = torch.cat([r[0] for r in rec_b.raw])[:n_frames].cpu().numpy()
+    cls_b = torch.cat([r[1] for r in rec_b.raw])[:n_frames].cpu().numpy()
+    rows1 = torch.cat([r[0] for r in rec1.raw]).cpu().numpy()
+    cls1 = torch.cat([r[1] for r in rec1.raw]).cpu().numpy()
+    fractions, diffs, unpartnered = [], [], {"batched": 0, "frame": 0}
+    above = {"batched": 0, "frame": 0}
+    for f in range(n_frames):
+        i, j = _match_rows(rows_b[f], cls_b[f], rows1[f], cls1[f])
+        fractions.append(len(i) / cfg.K)
+        diffs.append(np.abs(rows_b[f][i] - rows1[f][j]))
+        # the detections written to the result files: both ways
+        for name, (a, ca, b, cb) in (
+                ("batched", (rows_b[f], cls_b[f], rows1[f], cls1[f])),
+                ("frame", (rows1[f], cls1[f], rows_b[f], cls_b[f]))):
+            ka = a[:, 12] > cfg.peak_thresh
+            kb = b[:, 12] > cfg.peak_thresh
+            above[name] += int(ka.sum())
+            if ka.any():
+                if not kb.any():
+                    unpartnered[name] += int(ka.sum())
+                    continue
+                got, _ = _match_rows(a[ka], ca[ka], b[kb], cb[kb])
+                unpartnered[name] += int(ka.sum()) - len(got)
+    diffs = np.concatenate(diffs)
+    med = np.median(diffs, axis=0)
+    return {"matched_fraction_min": min(fractions),
+            "matched_fraction_mean": float(np.mean(fractions)),
+            "pairs": len(diffs), "above_peak_thresh": above,
+            "unpartnered_above_peak_thresh": unpartnered,
+            "median_abs_diff": {
+                "score": float(med[12]), "box_px": float(med[1:5].max()),
+                "alpha": float(med[0]), "dim": float(med[5:8].max()),
+                "xyz": float(med[8:11].max()), "ry": float(med[11])}}
+
+
 class _RecordingDetector:
     """Forwards to a Detector; records each dispatch's kernel launches and
     the raw rows of every frame (before the score filter)."""
@@ -982,7 +1067,6 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
         check(files == [f"{i:06d}.txt" for i in range(n_scenes)],
               f"result files {files}")
         rows4 = torch.cat([r[0] for r in rec4.raw])[:n_scenes]
-        cls4 = torch.cat([r[1] for r in rec4.raw])[:n_scenes]
         check(tuple(rows4.shape) == (n_scenes, cfg.K, 13) and
               bool(torch.isfinite(rows4).all()),
               f"validation rows {tuple(rows4.shape)} not finite")
@@ -998,29 +1082,8 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
             f"{len(files)} files, AP {json.dumps(aps)}")
 
         # the same scenes frame by frame, unfused
-        rec1, results1, _, _ = run(1, False)
-        check(all(g["dcn_fwd"] == 16 and g["dcn_fwd_om"] == 0 and
-                  g["dcn_fwd_tensor_core"] == 16
-                  for g in rec1.group_launches) and
-              len(rec1.group_launches) == n_scenes,
-              f"eval_batch 1 unfused launched {rec1.group_launches}")
-        rows1 = torch.cat([r[0] for r in rec1.raw]).cpu().numpy()
-        cls1 = torch.cat([r[1] for r in rec1.raw]).cpu().numpy()
-        rows4, cls4 = rows4.cpu().numpy(), cls4.cpu().numpy()
-        fractions, diffs = [], []
-        for f in range(n_scenes):
-            i, j = _match_rows(rows4[f], cls4[f], rows1[f], cls1[f])
-            fractions.append(len(i) / cfg.K)
-            diffs.append(np.abs(rows4[f][i] - rows1[f][j]))
-        diffs = np.concatenate(diffs)
-        med = np.median(diffs, axis=0)
-        match = {"matched_fraction_min": min(fractions),
-                 "matched_fraction_mean": float(np.mean(fractions)),
-                 "pairs": len(diffs),
-                 "median_abs_diff": {
-                     "score": float(med[12]), "box_px": float(med[1:5].max()),
-                     "alpha": float(med[0]), "dim": float(med[5:8].max()),
-                     "xyz": float(med[8:11].max()), "ry": float(med[11])}}
+        rec1 = run(1, False)[0]
+        match = _compare_val_runs(rec4, rec1, n_scenes, cfg)
         log(f"[val] eval_batch {eval_batch} fused vs eval_batch 1 unfused "
             f"(rule {json.dumps(VAL_MATCH_RULE)}): {json.dumps(match)}")
         check(match["matched_fraction_min"] >= VAL_MATCH_RULE["min_matched"]
@@ -1063,6 +1126,124 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
     return out
 
 
+# the protocol phase 11 trains, in bf16: (scenes, pairs per step, epochs),
+# as tests/test_overfit_ap.py runs its 16-scene protocol
+TRAINED_RUN = (16, 4, 240)
+
+
+def phase_trained_checkpoint() -> dict:
+    """The 16-scene protocol of side_tpu_torch.tools.acceptance_16 on the
+    card in bf16: train on the fixed fixture, detect on the same scenes
+    from the checkpoint written, score with the C++ evaluator.  Every
+    training step must launch the forward kernel, K2 and K3 16 times each,
+    every detection frame the forward kernel 16 times, all on the
+    tensor-core route; the convention checks must hold.  Then, on the
+    trained checkpoint, eval_batch 4 fused against eval_batch 1 unfused:
+    every row above peak_thresh of either run has its partner in the
+    other, under VAL_MATCH_RULE.  The JAX tests' quality floors are not
+    held here: the acceptance is `acceptance_16 --check` (ROADMAP.md)."""
+    import os
+    import tempfile
+    from dataclasses import replace
+    from side_tpu_torch import val
+    from side_tpu_torch.data.synthetic import fixture_frames, fixture_scenes
+    from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.tools import acceptance_16 as acc
+    t_phase = time.perf_counter()
+    n, batch, epochs = TRAINED_RUN
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = {}
+        # the counted run: every count set to 0 just before
+        reset_counts(KERNELS)
+        t0 = time.perf_counter()
+        res = acc.run_overfit_variants(
+            os.path.join(tmp, f"acc{n}"), epochs=epochs, n_scenes=n,
+            batch_size=batch, compute_dtype="bfloat16", _capture=cap)
+        wall = time.perf_counter() - t0
+        total = {k: v.launches for k, v in KERNELS.items()}
+        summary = acc.summarize(res)
+        for line in summary.values():
+            log(f"[trained] {n} scenes: {json.dumps(line)}")
+        timing, launches = cap["timing"], cap["launches"]
+        steps, frames = timing["steps"], timing["detect_frames"]
+        check(steps == epochs * (n // batch),
+              f"{steps} steps, expected {epochs * (n // batch)}")
+        train, detect = launches["train"], launches["detect"]
+        for name in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord"):
+            check(train[name] == train[f"{name}_tensor_core"] == 16 * steps,
+                  f"{name} launched {train[name]} times "
+                  f"({train[f'{name}_tensor_core']} on the tensor-core "
+                  f"route) in {steps} steps, expected {16 * steps}")
+        check(detect["dcn_fwd"] == detect["dcn_fwd_tensor_core"]
+              == 16 * frames and detect["dcn_bwd_dx"] == 0 and
+              detect["dcn_bwd_dcoord"] == 0 and
+              train["dcn_fwd_om"] == detect["dcn_fwd_om"] == 0,
+              f"detection over {frames} frames launched {detect}")
+        check(sum(total.values()) == sum(
+            train[k] + detect[k] for k in total),
+            f"launches outside training and detection: {total}")
+        out = {"scenes": n, "pairs_per_step": batch, "epochs": epochs,
+               "steps": steps, "wall_s": wall,
+               "train_s": timing["train_s"],
+               "s_per_epoch": timing["s_per_epoch"],
+               "ms_per_step": timing["ms_per_step"],
+               "detect_s": timing["detect_s"], "detect_frames": frames,
+               "final_loss": timing["final_loss"],
+               "launches": launches, "summary": summary,
+               "convention_failed": acc.convention_failures(res)}
+        log(f"[trained] {n} scenes, {batch} pairs a step, {epochs} epochs: "
+            f"{steps} steps in {timing['train_s']:.1f} s "
+            f"({timing['s_per_epoch']:.3f} s per epoch, "
+            f"{timing['ms_per_step']:.1f} ms per step), detection of "
+            f"{frames} frames {timing['detect_s']:.1f} s, run {wall:.1f} s; "
+            f"launches {json.dumps(launches)}")
+        log(f"[trained] clean run, per GT object: "
+            + json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
+                           for k, v in e.items()} for e in res["clean"][1]]))
+        check(not out["convention_failed"],
+              f"convention checks failed: {out['convention_failed']}")
+
+        # batched fused against frame-by-frame unfused, trained weights
+        cfg = acc.protocol_config(os.path.join(tmp, "data"), tmp,
+                                  batch_size=batch, compute_dtype="bfloat16")
+        det = Detector(replace(cfg, load_model=cap["checkpoint"]))
+        scenes = fixture_frames(fixture_scenes(n, 2, seed=0)[:n])
+        recs = {}
+        reset_counts(KERNELS)
+        for eb, fused in ((4, True), (1, False)):
+            recs[eb] = _RecordingDetector(det, KERNELS)
+            with dc.dcn_fused(fused):
+                val.run_pass(cfg, scenes, recs[eb], n=n, eval_batch=eb)
+        out["fused_launches"] = KERNELS["dcn_fwd_om"].launches
+        out["fused_tensor_core_launches"] = \
+            KERNELS["dcn_fwd_om"].tensor_core_launches
+        check(len(recs[4].group_launches) == n // 4 and all(
+            g["dcn_fwd_om"] == g["dcn_fwd_om_tensor_core"] == 16 and
+            g["dcn_fwd"] == 0 for g in recs[4].group_launches),
+            f"eval_batch 4 fused launched {recs[4].group_launches}")
+        match = _compare_val_runs(recs[4], recs[1], n, cfg)
+        out["match"] = match
+        log(f"[trained] eval_batch 4 fused vs eval_batch 1 unfused (rule "
+            f"{json.dumps(VAL_MATCH_RULE)}): {json.dumps(match)}")
+        unmatched = match["unpartnered_above_peak_thresh"]
+        check(match["matched_fraction_min"] >= VAL_MATCH_RULE["min_matched"]
+              and match["median_abs_diff"]["score"] <= VAL_MATCH_RULE["score"]
+              and match["median_abs_diff"]["box_px"]
+              <= VAL_MATCH_RULE["box_px"]
+              and not any(unmatched.values()),
+              f"the two validation runs of the trained checkpoint "
+              f"disagree: {match}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[trained] phase {out['phase_s']:.1f} s")
+    return out
+
+
+def _shape(row) -> tuple:
+    return (row["cin"], row["h"], row["w"], row["cout"])
+
+
 def _per_unit(rows, key, count_key):
     """Sum over the unit's launches: each shape's value times its count
     (cases off the main path have count 0)."""
@@ -1090,6 +1271,7 @@ def main() -> int:
         return 1
     from side_tpu_torch.ops.dcn_cuda import BWD_LIB, FWD_LIB, OM_LIB
     from side_tpu_torch.ops.gather_cuda import GATHER_LIB
+    from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
     t_start = time.perf_counter()
     dev = phase_toolchain()
     kern = phase_kernels()
@@ -1101,6 +1283,7 @@ def main() -> int:
     fused = phase_fused_kernel()
     gather = phase_gather_kernel()
     validation = phase_validation()
+    trained = phase_trained_checkpoint()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -1141,10 +1324,14 @@ def main() -> int:
             key: _per_unit(fwd_step, key, "per_step")
             for key in ("ms", "cuda_core_ms", "plain_ms", "bound_ms")},
         "checked_shapes": {
-            path: len({(r["cin"], r["h"], r["w"], r["cout"]) for r in rows})
-            for path, rows in (
-                ("serving, B=2", kern["rows"]),
-                ("training, B=8", fwd_rows[len(kern["rows"]):]))},
+            path: len({shape for shape in map(_shape, rows)
+                       if shape in shapes})
+            for path, rows, shapes in (
+                ("serving, B=2", kern["rows"],
+                 [sh for sh, _ in SERVING_SHAPES]),
+                ("training, B=8", fwd_rows[len(kern["rows"]):],
+                 [sh for sh, _ in SERVING_SHAPES]),
+                ("acceptance 128x384, B=8", fwd_rows, PROTOCOL_SHAPES))},
         "per_shape": fwd_rows,
     }]
     for name, replaces in (("dcn_bwd_dx",
@@ -1231,9 +1418,29 @@ def main() -> int:
         "unit": "the probe's shape: x (2, 96, 320, 64) bf16, 552,960 samples",
         "per_shape": gather["rows"],
     })
+    # phase 11's launches, in training and in detection
+    for entry in entries:
+        name = entry["name"]
+        if name in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord"):
+            entry["launches_trained_run"] = {
+                part: trained["launches"][part][name]
+                for part in ("train", "detect")}
+            entry["tensor_core_launches_trained_run"] = {
+                part: trained["launches"][part][f"{name}_tensor_core"]
+                for part in ("train", "detect")}
+        elif name == "dcn_fwd_om":
+            entry["launches_trained_run"] = trained["fused_launches"]
+            entry["tensor_core_launches_trained_run"] = \
+                trained["fused_tensor_core_launches"]
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
+    log(f"[summary] trained run, {trained['scenes']} scenes, bf16: clean "
+        f"{json.dumps(trained['summary']['clean'])}; "
+        f"{trained['s_per_epoch']:.3f} s per epoch, "
+        f"{trained['ms_per_step']:.1f} ms per step, run "
+        f"{trained['wall_s']:.1f} s, phase {trained['phase_s']:.1f} s; "
+        f"eval_batch 4 fused vs 1 unfused {json.dumps(trained['match'])}")
     log(f"[summary] train step {train['step_ms_median']:.1f} ms median, "
         f"split {json.dumps(train['split'])}, peak "
         f"{train['peak_mem_gib']:.2f} GiB; small-train check "

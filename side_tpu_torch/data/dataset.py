@@ -65,7 +65,8 @@ def warp_affine(img: np.ndarray, trans: np.ndarray, out_w: int, out_h: int):
                      (y0 + dy >= 0) & (y0 + dy < h))
             out += (img[yi, xi].astype(np.float32) *
                     (wgt * valid)[..., None if img.ndim == 3 else ()])
-    return out.astype(img.dtype) if img.dtype == np.uint8 else out
+    # rounded, as cv2.warpAffine rounds its fixed-point result
+    return np.rint(out).astype(img.dtype) if img.dtype == np.uint8 else out
 
 
 def target_spec(cfg: Config, max_objs: int) -> TargetSpec:
@@ -149,15 +150,20 @@ class StereoKitti:
     class_name = CLASS_NAMES
     max_objs = 50
 
-    def __init__(self, cfg: Config, split: str):
+    def __init__(self, cfg: Config, split: str,
+                 coco: Optional[CocoIndex] = None):
+        """`coco`: the split's index, when it is not read from
+        `cfg.data_dir`'s annotation file."""
         self.cfg = cfg
         self.split = split
         data_dir = os.path.join(cfg.data_dir, "kitti")
         self.img_dir = os.path.join(data_dir, "training", "image_2")
         self.img_right_dir = os.path.join(data_dir, "training", "image_3")
-        annot = os.path.join(data_dir, "annotations_3d",
-                             f"kitti_{cfg.kitti_split}_{split}.json")
-        self.coco = CocoIndex(annot)
+        if coco is None:
+            coco = CocoIndex(os.path.join(
+                data_dir, "annotations_3d",
+                f"kitti_{cfg.kitti_split}_{split}.json"))
+        self.coco = coco
         self.images: List[int] = list(self.coco.img_ids)
         self.ori_samples = len(self.images)
         if cfg.flip_train and split == "train":

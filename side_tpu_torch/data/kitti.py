@@ -51,19 +51,24 @@ def calib_from_list(calib_list: Sequence) -> Calib:
     return Calib(p0=ps[0], p1=ps[1], p2=ps[2], p3=ps[3])
 
 
-def read_calib_file(path: str) -> List[List[float]]:
-    """Parse a raw KITTI calib txt into the list-of-rows format stored in the
-    COCO JSON (convert_kitti_to_coco.py:43-55)."""
+def parse_calib(text: str) -> List[List[float]]:
+    """Parse the text of a raw KITTI calib file into the list-of-rows
+    format stored in the COCO JSON (convert_kitti_to_coco.py:43-55)."""
     out = []
-    with open(path) as f:
-        for i, line in enumerate(f):
-            line = line.strip()
-            if not line:
-                continue
-            vals = np.array(line.split(" ")[1:], np.float32)
-            vals = vals.reshape(3, 3) if i == 4 else vals.reshape(3, 4)
-            out.append(vals.tolist())
+    for i, line in enumerate(text.splitlines()):
+        line = line.strip()
+        if not line:
+            continue
+        vals = np.array(line.split(" ")[1:], np.float32)
+        vals = vals.reshape(3, 3) if i == 4 else vals.reshape(3, 4)
+        out.append(vals.tolist())
     return out
+
+
+def read_calib_file(path: str) -> List[List[float]]:
+    """`parse_calib` of a raw KITTI calib file."""
+    with open(path) as f:
+        return parse_calib(f.read())
 
 
 @dataclass

@@ -1,6 +1,9 @@
 """Synthetic mini-KITTI scenes (copy of side_tpu/data/synthetic.py, plus
-`scene_batch`, which feeds the trainer rendered scenes held in memory, and
-`val_scenes`, which feeds the validation pass the same way).
+`scene_batch`, which feeds the trainer rendered scenes held in memory,
+`val_scenes`, which feeds the validation pass the same way, and the fixed
+fixture of `build_fixture` held in memory: `fixture_scenes`, read as a
+training split by `FixtureKitti` and as validation frames by
+`fixture_frames`).
 
 The reference ships no fixtures (SURVEY.md §4); this generator renders a few
 stereo pairs of textured 3D boxes with a real pinhole stereo rig so the full
@@ -16,8 +19,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import Config
-from .dataset import collate, make_sample, target_spec
-from .kitti import box3d_corners, label_annotation, project
+from .dataset import StereoKitti, collate, make_sample, target_spec
+from .kitti import (KITTI_CATS, CocoIndex, box3d_corners, convert_split,
+                    label_annotation, parse_calib, project)
 
 F = 721.5377
 CX, CY = 609.5593, 172.854
@@ -264,30 +268,24 @@ def val_scenes(n: int, seed: int = 0, label_dir: Optional[str] = None
     return frames
 
 
-def build_fixture(root: str, n_train: int = 4, n_val: int = 2,
-                  seed: int = 0, split_name: str = "3dop",
-                  classes: Tuple[str, ...] = ("Car", "Van", "Truck")) -> str:
-    """Write a synthetic KITTI tree under `root`/kitti; returns the data dir.
+def fixture_scenes(n_train: int = 4, n_val: int = 2, seed: int = 0,
+                   classes: Tuple[str, ...] = ("Car", "Van", "Truck")
+                   ) -> List[dict]:
+    """The scenes `build_fixture` writes, held in memory, in its order and
+    from its draws: per scene its `name` ("%06d"), `image_id` (the id
+    `convert_split` gives it), `left` / `right` (the BGR arrays the PNGs
+    hold: PNG is lossless), `label` (the label file's text) and `calib`
+    (the calib file's text).
 
     Scenes 0-1 stay Car-only easy (the 2-scene overfit calibration depends
     on them); from scene 2 on, filler objects cycle through `classes`
     (rotated per scene) so the per-class decode bucketing, merge threshold
     and the multi-class train->detect->eval loop are exercised
     (stereoDataset.py:21 trains Car/Van/Truck)."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
     rng = np.random.RandomState(seed)
-    base = os.path.join(root, "kitti")
-    for d in ["training/image_2", "training/image_3", "training/label_2",
-              "training/calib", f"ImageSets_{split_name}", "annotations_3d"]:
-        os.makedirs(os.path.join(base, d), exist_ok=True)
-
     p2, p3 = default_calib()
-    n_total = n_train + n_val
-    ids = []
-    for i in range(n_total):
+    scenes = []
+    for i in range(n_train + n_val):
         # scenes 0-1 stay easy (the overfit acceptance test's calibration
         # depends on them); beyond that, mix in occlusion pairs and
         # truncated cars so the evaluator's difficulty filters and the
@@ -305,25 +303,106 @@ def build_fixture(root: str, n_train: int = 4, n_val: int = 2,
                                for j in range(len(classes))))
         objs = make_scene(rng, n_cars=rng.randint(1, 4), recipe=recipe,
                           classes=scene_classes)
-        tex_rng = np.random.RandomState(1000 + i)
-        img_l = _render(objs, p2, np.random.RandomState(1000 + i))
-        img_r = _render(objs, p3, np.random.RandomState(1000 + i))
         name = f"{i:06d}"
+        scenes.append({
+            "name": name, "image_id": int(name),
+            "left": _render(objs, p2, np.random.RandomState(1000 + i)),
+            "right": _render(objs, p3, np.random.RandomState(1000 + i)),
+            "label": label_lines(objs, p2), "calib": calib_lines(p2, p3)})
+    return scenes
+
+
+def fixture_coco(scenes: List[dict]) -> dict:
+    """The COCO-style split `convert_split` writes for these scenes, built
+    from their label and calib texts: the same ids, calibration (parsed
+    through float32) and annotations."""
+    ret = {"images": [], "annotations": [],
+           "categories": [{"name": c, "id": i + 1}
+                          for i, c in enumerate(KITTI_CATS)]}
+    for sc in scenes:
+        ret["images"].append({"file_name": sc["name"] + ".png",
+                              "id": sc["image_id"],
+                              "calib": parse_calib(sc["calib"])})
+        for txt in sc["label"].splitlines(keepends=True):
+            ann = label_annotation(txt, sc["image_id"],
+                                   len(ret["annotations"]) + 1)
+            if ann is not None:
+                ret["annotations"].append(ann)
+    return ret
+
+
+class FixtureKitti(StereoKitti):
+    """`StereoKitti` over fixture scenes held in memory: the same samples
+    (`make_sample`, the same random streams, `meta` with `img_id`) without
+    image files or OpenCV.  `fixture_scenes(n, ...)[:n]` with `split`
+    "train" is what `StereoKitti(cfg, "train")` reads from
+    `build_fixture(root, n, ...)`'s tree."""
+
+    def __init__(self, cfg: Config, scenes: List[dict],
+                 split: str = "train"):
+        self._pairs = {sc["name"] + ".png": (sc["left"], sc["right"])
+                       for sc in scenes}
+        super().__init__(cfg, split, coco=CocoIndex(fixture_coco(scenes)))
+
+    def _read_pair(self, file_name: str, flipped: bool):
+        img_l, img_r = self._pairs[file_name]
+        if flipped:
+            img_l, img_r = img_r[:, ::-1].copy(), img_l[:, ::-1].copy()
+        return img_l, img_r, file_name, file_name
+
+
+def fixture_frames(scenes: List[dict], label_dir: Optional[str] = None
+                   ) -> List[tuple]:
+    """The scenes as the validation pass reads them: (image id, (left,
+    right), calib), with the calibration `StereoKitti` gives the detector.
+    With `label_dir`, each scene's label file is written to
+    `label_dir/<name>.txt`, byte for byte the fixture's."""
+    if label_dir is not None:
+        os.makedirs(label_dir, exist_ok=True)
+    frames = []
+    for sc in scenes:
+        if label_dir is not None:
+            with open(os.path.join(label_dir, sc["name"] + ".txt"),
+                      "w") as fh:
+                fh.write(sc["label"])
+        frames.append((sc["image_id"], (sc["left"], sc["right"]),
+                       parse_calib(sc["calib"])))
+    return frames
+
+
+def build_fixture(root: str, n_train: int = 4, n_val: int = 2,
+                  seed: int = 0, split_name: str = "3dop",
+                  classes: Tuple[str, ...] = ("Car", "Van", "Truck")) -> str:
+    """Write a synthetic KITTI tree of `fixture_scenes` under `root`/kitti
+    (the PNGs only where OpenCV is installed); returns the data dir."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    base = os.path.join(root, "kitti")
+    for d in ["training/image_2", "training/image_3", "training/label_2",
+              "training/calib", f"ImageSets_{split_name}", "annotations_3d"]:
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+
+    ids = []
+    for sc in fixture_scenes(n_train, n_val, seed, classes):
+        name = sc["name"]
         ids.append(name)
         if cv2 is not None:
-            cv2.imwrite(os.path.join(base, "training/image_2", name + ".png"), img_l)
-            cv2.imwrite(os.path.join(base, "training/image_3", name + ".png"), img_r)
+            cv2.imwrite(os.path.join(base, "training/image_2", name + ".png"),
+                        sc["left"])
+            cv2.imwrite(os.path.join(base, "training/image_3", name + ".png"),
+                        sc["right"])
         with open(os.path.join(base, "training/label_2", name + ".txt"), "w") as f:
-            f.write(label_lines(objs, p2))
+            f.write(sc["label"])
         with open(os.path.join(base, "training/calib", name + ".txt"), "w") as f:
-            f.write(calib_lines(p2, p3))
+            f.write(sc["calib"])
 
     with open(os.path.join(base, f"ImageSets_{split_name}", "train.txt"), "w") as f:
         f.write("\n".join(ids[:n_train]) + "\n")
     with open(os.path.join(base, f"ImageSets_{split_name}", "val.txt"), "w") as f:
         f.write("\n".join(ids[n_train:]) + "\n")
 
-    from .kitti import convert_split
     for split in ("train", "val"):
         convert_split(base, split_name, split,
                       os.path.join(base, "annotations_3d",

@@ -34,6 +34,10 @@ def main(argv=None) -> int:
     argv, calib_path = _pop_option(argv, "--calib")
     argv, device = _pop_option(argv, "--device")
     cfg = Config.cli(argv)
+    if cfg.debug:
+        raise SystemExit(f"--debug {cfg.debug}: the overlay drawing of "
+                         "tools/demo.py is not ported yet (ROADMAP.md, "
+                         "Queue 1 item 4.7); run without --debug")
     if not cfg.demo:
         raise SystemExit("--demo left.png,right.png (or a KITTI dir) required")
     if not calib_path:

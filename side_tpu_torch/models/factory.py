@@ -17,6 +17,10 @@ def create_model(cfg: Config, seed: int = 0) -> StereoNet:
         raise NotImplementedError(
             f"arch {cfg.arch!r} / depth_variant {cfg.depth_variant!r} is not "
             "ported yet (ROADMAP.md, Queue 1: the off-path models)")
+    if cfg.remat:
+        raise NotImplementedError(
+            "--remat (rematerialising the backbone in training) is not "
+            "ported yet (ROADMAP.md, Queue 1 item 2)")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     return StereoNet(heads=dict(cfg.heads), roi_size=cfg.roi_size,

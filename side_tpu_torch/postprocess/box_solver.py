@@ -4,8 +4,11 @@ side_tpu/postprocess/box_solver.py, the 3-DoF solve the inference tail uses).
 The residuals are the Stereo-RCNN-style reprojection terms (2D box edges,
 perspective keypoint, viewpoint angle, truncation-aware masks), solved by a
 damped Gauss-Newton over a fixed iteration count for all detections at
-once.  The Jacobian is exact: one forward-mode product per state variable
-(`torch.func.jvp`), where the JAX package vmaps `jax.jacfwd`.
+once.  The Jacobian is exact and written out (`jacobian_xytheta`), where
+the JAX package vmaps `jax.jacfwd`: the tail runs under
+`torch.inference_mode`, where forward-mode AD (`torch.func.jvp`) gives no
+derivative in some PyTorch releases (on 2.11 the solver then returned its
+initial state).
 """
 
 from __future__ import annotations
@@ -173,22 +176,48 @@ def residuals_xytheta(state: torch.Tensor, z: torch.Tensor,
     return torch.stack([r_ul, r_ur, r_uk, r_vb, r_vt, r_a], dim=1)
 
 
-def gauss_newton(res_fn, x0: torch.Tensor, num_iters: int = 20,
+def jacobian_xytheta(state: torch.Tensor, z: torch.Tensor,
+                     c: SolveConsts) -> torch.Tensor:
+    """d residuals_xytheta / d (x, y, theta), (N, 6, 3), in closed form."""
+    x, y, theta = state[:, 0], state[:, 1], state[:, 2]
+    s, ct = torch.sin(theta), torch.cos(theta)
+    zero = torch.zeros_like(x)
+
+    def edge(vw, vl, m):
+        # u = (x + c vw + s vl) / (z - s vw + c vl)
+        num = x + ct * vw + s * vl
+        den = z - s * vw + ct * vl
+        d_num = -s * vw + ct * vl
+        d_den = -ct * vw - s * vl
+        return (m / den, zero, m * (d_num * den - num * d_den) / den ** 2)
+
+    r_ul = edge(c.lw, c.ll, c.m_ul)
+    r_ur = edge(c.rw, c.rl, c.m_ur)
+    r_uk = edge(c.kw, c.kl, 2.0 * c.m_uk)
+    den_b = z - s * c.bw + ct * c.bot_l
+    r_vb = (zero, c.m_vb / den_b,
+            -c.m_vb * y * (-ct * c.bw - s * c.bot_l) / den_b ** 2)
+    den_t = z + s * c.bw - ct * c.bot_l
+    r_vt = (zero, c.m_vt / den_t,
+            -c.m_vt * (y - c.h) * (ct * c.bw + s * c.bot_l) / den_t ** 2)
+    # d atan2(-x, z) / dx = -z / (x^2 + z^2)
+    r_a = (-c.m_alpha * z / (x * x + z * z), zero, c.m_alpha)
+    return torch.stack([torch.stack(row, dim=1) for row in
+                        (r_ul, r_ur, r_uk, r_vb, r_vt, r_a)], dim=1)
+
+
+def gauss_newton(res_fn, jac_fn, x0: torch.Tensor, num_iters: int = 20,
                  damping: float = 1e-4) -> torch.Tensor:
-    """Damped Gauss-Newton on per-row residuals res_fn (N, n) -> (N, m),
-    rows independent.  A step that is non-finite or raises the cost is
-    rejected (the row keeps its state)."""
+    """Damped Gauss-Newton on per-row residuals res_fn (N, n) -> (N, m)
+    with their Jacobian jac_fn (N, n) -> (N, m, n), rows independent.  A
+    step that is non-finite or raises the cost is rejected (the row keeps
+    its state)."""
     x = x0
     n = x.shape[1]
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
     for _ in range(num_iters):
-        cols = []
-        for j in range(n):
-            tangent = torch.zeros_like(x)
-            tangent[:, j] = 1.0
-            r, col = torch.func.jvp(res_fn, (x,), (tangent,))
-            cols.append(col)
-        J = torch.stack(cols, dim=2)                        # (N, m, n)
+        r = res_fn(x)
+        J = jac_fn(x)                                       # (N, m, n)
         JtJ = J.transpose(1, 2) @ J
         g = (J.transpose(1, 2) @ r[..., None])[..., 0]
         step = torch.linalg.solve_ex(JtJ + damping * eye, g)[0]
@@ -207,5 +236,6 @@ def solve_x_y_theta(consts: SolveConsts, z: torch.Tensor,
     init_y = z * (consts.bottom_v + consts.top_v) / 2.0 + consts.h / 2.0
     init_t = consts.alpha + math.pi / 2 - torch.atan2(-init_x, z)
     x0 = torch.stack([init_x, init_y, init_t], dim=-1)
-    return gauss_newton(lambda s: residuals_xytheta(s, z, consts), x0,
+    return gauss_newton(lambda s: residuals_xytheta(s, z, consts),
+                        lambda s: jacobian_xytheta(s, z, consts), x0,
                         num_iters)

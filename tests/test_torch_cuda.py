@@ -40,6 +40,7 @@ from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX, DCN_FWD,
                                          DCN_FWD_OM, dcn_route, dx_plan)
 from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
                                             gather_bilinear_plain)
+from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -690,3 +691,73 @@ def test_batched_group_launches_k4_16_times_and_k1_never(card):
     # scores of the two routes (the network's output, before the solver)
     err = (rows_fused[..., 12] - rows_plain[..., 12]).abs().max()
     assert float(err) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PROTOCOL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PROTOCOL_SHAPES])
+def test_kernels_at_the_protocol_shapes_on_card(card, shape, dtype):
+    """The forward kernel, K2 and K3 through DcnFunction against the plain
+    version and its autograd at B = 8, R = 1, offsets far outside the
+    window (as a trained model's are); bf16 takes the tensor-core route."""
+    cin, h, w_, cout = shape
+    gen = torch.Generator(card).manual_seed(sum(shape))
+    x = torch.randn(8, h, w_, cin, device=card, generator=gen).to(dtype)
+    off = (torch.rand(8, h, w_, 9, 2, device=card, generator=gen) * 3.0
+           - 1.5) * 8.0
+    mask = torch.rand(8, h, w_, 9, device=card, generator=gen)
+    w = torch.randn(3, 3, cin, cout, device=card, generator=gen) / (
+        9 * cin) ** 0.5
+    b = torch.randn(cout, device=card, generator=gen) * 0.1
+    g = torch.randn(8, h, w_, cout, device=card, generator=gen).to(dtype)
+    before = [k.tensor_core_launches
+              for k in (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)]
+    with tdc.dcn_mode("windowed", 1):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, off, mask, w, b)]
+        out = tdc.deform_conv2d(*leaves)
+        out.backward(g)
+    got = [out.detach()] + [t.grad for t in leaves]
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, off, mask, w, b)]
+    ref = tdc.deform_conv_plain(*leaves, 1)
+    ref.backward(g)
+    want = [ref.detach()] + [t.grad for t in leaves]
+    tensor = dtype == torch.bfloat16
+    assert [k.tensor_core_launches - n for k, n in zip(
+        (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD), before)] == [int(tensor)] * 3
+    for name, a, r in zip(("out", "x", "offset", "mask", "weight", "bias"),
+                          got, want):
+        err = float((a.float() - r.float()).abs().max() /
+                    r.float().abs().max())
+        tol = (TOL if name == "out" else BWD_TOL)[dtype]
+        assert err <= tol, (name, err)
+
+
+def test_box_solver_moves_under_inference_mode_on_card(card):
+    """The tail solves under torch.inference_mode; the solve must not rely
+    on forward-mode AD there (PyTorch 2.11 gives zero tangents, and the
+    solver returned its initial state).  One detection of the acceptance
+    fixture's scene 0 (a car at z = 29.8 m, keypoint type 1): the solve
+    on the card under inference mode equals the CPU's outside it, and
+    theta moves from its initial 4.466 to 3.916."""
+    from side_tpu_torch.postprocess import box_solver as BS
+    row = dict(left_u=0.0580025, right_u=0.1813406, top_v=-0.0006835,
+               bottom_v=0.0621107, kpt_u=0.1020519, left_u_r=0.0369943,
+               right_u_r=0.1637822, alpha=2.7763853, h=1.6257122, bl=0.54,
+               lw=0.8229299, ll=1.9409431, rw=-0.8229299, rl=-1.9409431,
+               bw=-0.8229299, bot_l=1.9409431, kw=-0.8229299,
+               kl=1.9409431, m_ul=1.0, m_ur=1.0, m_uk=1.0, m_vt=1.0,
+               m_vb=1.0, m_alpha=0.0, m_ul_r=0.0, m_ur_r=0.0)
+
+    def consts(device):
+        return BS.SolveConsts(**{k: torch.full((3,), v, device=device)
+                                 for k, v in row.items()})
+
+    z = torch.full((3,), 29.823736)
+    want = BS.solve_x_y_theta(consts("cpu"), z)
+    with torch.inference_mode():
+        got = BS.solve_x_y_theta(consts(card), z.to(card)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert abs(float(got[0, 2]) - 3.9159) < 1e-3

@@ -136,3 +136,31 @@ def test_scene_batch_is_a_seeded_training_batch():
     assert (a["depth"][valid] > 0).all() and (a["depth"][~valid] == 0).all()
     assert (a["ind"] < 16 * 32).all()
     np.testing.assert_allclose(a["fb"], jsyn.F * jsyn.BASELINE, rtol=1e-6)
+
+
+@pytest.mark.parametrize("out_hw,max_share", [((128, 384), 0.0),
+                                              ((384, 1280), 1e-3)],
+                         ids=["128x384", "384x1280"])
+def test_warp_affine_fallback_rounds_as_cv2(monkeypatch, out_hw, max_share):
+    """Without OpenCV (the H100 machine) the NumPy warp rounds, as
+    cv2.warpAffine does: equal at the protocol's 128x384, within 1 LSB on
+    at most 0.1 % of the pixels at 384x1280 (cv2 interpolates in fixed
+    point)."""
+    import cv2
+    h, w = out_hw
+    diffs = []
+    for sc in tsyn.fixture_scenes(4, 0, seed=0):
+        for img in (sc["left"], sc["right"]):
+            c = np.array([img.shape[1] / 2.0, img.shape[0] / 2.0])
+            s = np.array([img.shape[1], img.shape[0]], np.float64)
+            trans = tgeo.get_affine_transform(c, s, 0, [w, h])
+            want = cv2.warpAffine(img, trans[:2].astype(np.float64), (w, h),
+                                  flags=cv2.INTER_LINEAR)
+            with monkeypatch.context() as m:
+                m.setattr(tds, "_cv2", lambda: None)
+                got = tds.warp_affine(img, trans, w, h)
+            assert got.dtype == np.uint8 and got.shape == want.shape
+            diffs.append(np.abs(got.astype(np.int16) - want))
+    diffs = np.stack(diffs)
+    assert diffs.max() <= 1
+    assert (diffs > 0).mean() <= max_share

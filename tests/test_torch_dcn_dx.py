@@ -41,6 +41,7 @@ from side_tpu.ops import deform_conv as jdc
 from side_tpu_torch.ops import deform_conv as tdc
 from side_tpu_torch.ops.dcn_cuda import (SM_COUNT, SMEM_PER_BLOCK,
                                          SMEM_PER_SM, dx_plan)
+from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
 
 from torch_parity import rel_err
 
@@ -86,6 +87,32 @@ def test_dx_plan_fills_the_card_within_shared_memory(shape, batch, radius):
     assert plan["smem_bytes"] == (
         plan["g_rows"] * cout * 2 + 64 * cout * 2 + plan["region"] * 72 * 4
         + (2 * radius + 1) ** 2 * ph * 16 * 4)
+
+
+@pytest.mark.parametrize("shape", PROTOCOL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PROTOCOL_SHAPES])
+def test_dx_plan_at_the_protocol_shapes(shape):
+    """At 128x384, B = 8 and R = 1: Cout 64 takes the patch body, its
+    patches cover every pixel with no patch row or column empty (4 x 12
+    and 8 x 24 are ragged in width); the others take the tile body with
+    every pixel tile and no tap split empty; all within shared memory."""
+    cin, h, w, cout = shape
+    batch = 8
+    plan = dx_plan(batch, h, w, cin, cout, 1)
+    assert plan["smem_bytes"] <= SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM
+    assert plan["blocks"] == plan["tiles"] * (cin // 64) * plan["tap_splits"]
+    if cout != 64:
+        assert plan["scatter"] == "tile"
+        assert plan["tiles"] == -(-batch * h * w // 64)
+        per = -(-9 // plan["tap_splits"])
+        assert per * (plan["tap_splits"] - 1) < 9
+        return
+    assert plan["scatter"] == "patch" and plan["halo"] == 2
+    ph = plan["patch_h"]
+    assert plan["tiles"] == batch * -(-h // ph) * -(-w // 16)
+    assert (-(-h // ph) - 1) * ph < h and (-(-w // 16) - 1) * 16 < w
+    assert plan["region"] == (ph + 4) * (16 + 4) <= plan["g_rows"]
 
 
 def test_dx_plan_of_wide_windows_and_tiny_inputs():

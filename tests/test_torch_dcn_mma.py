@@ -33,6 +33,7 @@ from side_tpu_torch.ops import deform_conv as tdc
 from side_tpu_torch.ops.dcn_cuda import (SM_COUNT, SMEM_PER_BLOCK,
                                          SMEM_PER_SM, dcn_route, dcoord_plan,
                                          fwd_plan)
+from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
 
 import torch_parity  # noqa: F401  (thread count)
 
@@ -203,6 +204,40 @@ def test_dcoord_plan_fills_the_card_within_shared_memory(shape, batch):
     per = -(-plan["pixel_tiles"] // plan["slices"])
     assert 1 <= plan["slices"] <= plan["pixel_tiles"]
     assert per * (plan["slices"] - 1) < plan["pixel_tiles"]   # no empty slice
+
+
+PROTOCOL_IDS = ["x".join(map(str, s)) for s in PROTOCOL_SHAPES]
+
+
+@pytest.mark.parametrize("shape", PROTOCOL_SHAPES, ids=PROTOCOL_IDS)
+def test_plans_at_the_protocol_shapes(shape):
+    """At 128x384, B = 8: the tensor-core route; the forward's patches
+    cover every pixel with no patch row or column empty, and the reduction
+    is split (no split empty) where the tiles alone leave SMs idle; K3's
+    slices cover every pixel tile, none empty; both within shared
+    memory."""
+    cin, h, w, cout = shape
+    batch, P = 8, 8 * h * w
+    assert dcn_route(torch.bfloat16, cin, cout) == "tensor"
+    plan = fwd_plan(batch, h, w, cin, cout)
+    th, tw = plan["tile_h"], plan["tile_w"]
+    assert plan["tiles"] == batch * -(-h // th) * -(-w // tw)
+    assert (-(-h // th) - 1) * th < h and (-(-w // tw) - 1) * tw < w
+    assert plan["smem_bytes"] <= SMEM_PER_BLOCK
+    n_iter = 9 * cin // 64
+    per = -(-n_iter // plan["splits"])
+    assert per * (plan["splits"] - 1) < n_iter <= per * plan["splits"]
+    if plan["tiles"] < SM_COUNT:
+        assert plan["splits"] > 1 and plan["scratch_floats"] == \
+            plan["splits"] * P * cout
+        # one more split would leave a split empty or not add blocks
+        assert plan["blocks"] > SM_COUNT - plan["tiles"] * per
+    plan = dcoord_plan(P, cin, cout)
+    assert plan["pixel_tiles"] == -(-P // 64)
+    per = -(-plan["pixel_tiles"] // plan["slices"])
+    assert per * (plan["slices"] - 1) < plan["pixel_tiles"]
+    assert plan["blocks"] == plan["combos"] * plan["slices"] >= SM_COUNT
+    assert plan["smem_bytes"] <= SMEM_PER_BLOCK
 
 
 def test_plans_of_a_tiny_input():

@@ -63,3 +63,22 @@ def test_cli_reference_exact_without_a_dcn_import():
     default = Config.cli([])
     assert (default.cv_topk, default.align_topk, default.K,
             default.input_h, default.input_w) == (32, 32, 100, 384, 1280)
+
+
+def test_demo_debug_overlays_exit_with_a_message(capsys):
+    """--debug 1 draws overlays in tools/demo.py; the port has no drawing
+    yet, so it says so instead of ignoring the flag."""
+    with pytest.raises(SystemExit, match="overlay drawing .* not ported"):
+        demo.main(["--debug", "1"])
+    with pytest.raises(SystemExit, match="--demo left.png"):
+        demo.main(["--debug", "0"])
+
+
+def test_create_model_raises_on_remat():
+    """--remat rematerialises the backbone in side_tpu; the port's factory
+    refuses it rather than run the full footprint without a word."""
+    from side_tpu_torch.models.factory import create_model
+    cfg = Config.cli(["--remat", "--input_h", "128", "--input_w", "256"])
+    assert cfg.remat
+    with pytest.raises(NotImplementedError, match="--remat"):
+        create_model(cfg)

@@ -91,6 +91,73 @@ def test_solve_x_y_theta_matches():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+def _solver_case(seed=0):
+    """Consts of the CARS scene in float64, some rows with their keypoint
+    masked (the alpha residual on), and random states around the cars."""
+    cfg, p2, p3, _, _ = _scene([])
+    box_l, box_r, kpts, alpha, dim_whl, z = _solver_inputs(
+        cfg, list(CARS), depth_fn=lambda zz: zz)
+    bl = float((p2[0, 3] - p3[0, 3]) / p2[0, 0])
+    c = TBS.build_consts(torch.tensor([1242.0, 375.0]),
+                         torch.from_numpy(p2.astype(np.float32)), bl,
+                         *[torch.from_numpy(a) for a in
+                           (alpha, dim_whl, box_l, box_r, kpts)],
+                         use_right=False, grid=cfg.grid)
+    c = TBS.SolveConsts(*[t.double() for t in c])
+    rng = np.random.RandomState(seed)
+    flip = torch.from_numpy(rng.rand(len(z)) < 0.5)
+    c = c._replace(m_uk=torch.where(flip, 0.0, c.m_uk),
+                   m_alpha=torch.where(flip, 1.0, c.m_alpha))
+    z = torch.from_numpy(z).double()
+    state = torch.from_numpy(np.stack([
+        rng.uniform(-8, 8, len(z)), rng.uniform(0.5, 2.5, len(z)),
+        rng.uniform(-math.pi, 2 * math.pi, len(z))], 1))
+    return c, z, state
+
+
+def test_jacobian_matches_forward_mode_ad():
+    """The solver's closed-form Jacobian equals forward-mode AD of its
+    residuals (float64), keypoint and alpha residuals both exercised."""
+    c, z, state = _solver_case()
+    cols = []
+    for j in range(3):
+        tangent = torch.zeros_like(state)
+        tangent[:, j] = 1.0
+        cols.append(torch.func.jvp(
+            lambda s: TBS.residuals_xytheta(s, z, c), (state,),
+            (tangent,))[1])
+    want = torch.stack(cols, dim=2)
+    got = TBS.jacobian_xytheta(state, z, c)
+    assert bool(c.m_alpha.any()) and bool(c.m_uk.any())
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_solver_needs_no_forward_mode_ad(monkeypatch):
+    """The device tail solves under torch.inference_mode, where forward-mode
+    AD gives no derivative in some PyTorch releases (2.11: zero tangents;
+    the solver then returned its initial state and the trained
+    acceptance run's rotations were off by up to 0.68 rad on the card).
+    With torch.func.jvp giving zero tangents, the solve under inference
+    mode equals the solve outside it and moves away from the initial
+    state."""
+    c, z, _ = _solver_case()
+    c = TBS.SolveConsts(*[t.float() for t in c])
+    z = z.float()
+    want = TBS.solve_x_y_theta(c, z)
+
+    def no_tangent(fn, primals, tangents):
+        out = fn(*primals)
+        return out, torch.zeros_like(out)
+
+    monkeypatch.setattr(torch.func, "jvp", no_tangent)
+    with torch.inference_mode():
+        got = TBS.solve_x_y_theta(c, z)
+    torch.testing.assert_close(got, want)
+    init_t = c.alpha + math.pi / 2 - torch.atan2(
+        -z * (c.left_u + c.right_u) / 2, z)
+    assert float((got[:, 2] - init_t).abs().max()) > 1e-2
+
+
 def _jax_errors(im_l, im_r, uv, dz, weight, enum, fb):
     """The reference's photometric error table (I, N), as
     dense_align._photometric_best scores it."""
