@@ -42,7 +42,10 @@ Phases, each of which must pass:
      device-memory scatter's time on the patch route's operands
      (`tile_ms`), and d_x's error over the pixels on the image border and
      on patch seams alone (`max_rel_err_border`), held to the same
-     tolerance;
+     tolerance; then K2 and K3 under `deterministic_mode` (phase 11's
+     setting) at the 7 training shapes and the 7 protocol shapes (bf16,
+     R=1): the same tolerances, K2 on its patch body at every width, two
+     calls equal bit for bit, timed beside the default route;
   6. the training path: Trainer(Config()) at full width (384x1280, bf16,
      max_objs 50, roi_size 16) on He-scaled seeded weights with perturbed
      offsets, fed 4 rendered stereo pairs held in memory, takes 1 warm-up
@@ -87,7 +90,11 @@ Phases, each of which must pass:
      fused and unfused; launches and device busy share of one group and of
      one frame;
  11. a trained checkpoint (side_tpu_torch.tools.acceptance_16's 16-scene
-     protocol, bf16, 128x384, the flagship at full width, seed 0): train on
+     protocol, bf16, 128x384, the flagship at full width, seed 0), run
+     under `deterministic_mode` so that its outcome is the same every run
+     on an H100 with this software: first two runs of the protocol's first
+     2 epochs from the same weights must end in the same weights bit for
+     bit; then train on
      the fixed 16-scene fixture held in memory (4 pairs a step, 240 epochs
      = 960 steps), detect on the same scenes from the checkpoint written
      (eval_batch 1, with and without the dense alignment), write KITTI
@@ -104,7 +111,25 @@ Phases, each of which must pass:
      against eval_batch 1 unfused: VAL_MATCH_RULE, and every row above
      peak_thresh of either run has its partner above peak_thresh in the
      other.  Prints each variant's summary line, the per-object errors,
-     seconds per epoch, ms per step and the phase's time.
+     the trained weights' digest, seconds per epoch, ms per step and the
+     phase's time.
+ 12. the model zoo (the models beyond the flagship, 384x1280, bf16,
+     random seeded weights): (a) the forward kernel (B=2 and 8), K2 and K3
+     (B=8) at resdcn_18's three DeformBlock shapes, bf16 and f32, against
+     their plain versions (phases 2 and 5's tolerances); (b) K5 at the
+     voxel path's shapes (1 image x 100 objects, 4 images x 50 objects,
+     1000 voxels each, the coordinates `voxel_coords` gives for random
+     cars), f32 out, bf16 and f32 maps, against its plain version, its
+     autograd backward against the plain gradient (f32, 1e-5), with
+     F.grid_sample's time; (c) `--depth_variant voxel`: Detector.run on
+     3 frames (16 dcn_fwd and 2 K5 launches a frame) and 3 train steps at
+     4 pairs (16 of each DCN kernel and 2 K5 a step); (d) `resdcn_18
+     --not_cost_volume`: the same with 3 DCN launches a frame / of each
+     kernel a step; (e) dlaseg_34 (batch 1), res_18 and dlav0_34 forwards:
+     head shapes, finite values; (f) one flagship step with and one
+     without `--remat` from the same weights and batch: loss parts and
+     running statistics to one bf16 ulp, the statistics blended once, the
+     peak memory with --remat the lower.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -118,13 +143,18 @@ CUDA device is present.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# cuBLAS's setting for repeatable results (phases 5 and 11 run under
+# deterministic_mode), read when cuBLAS first runs in the process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
 # the 7 distinct DeformBlock shapes of one serving frame (2 images):
@@ -266,8 +296,6 @@ def _bound_ms(cin, h, w, cout, dtype, batch=BATCH):
 
 
 def phase_kernels() -> dict:
-    from side_tpu_torch.ops.dcn_cuda import DCN_FWD
-    from side_tpu_torch.ops.deform_conv import deform_conv_plain
     from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -287,44 +315,53 @@ def phase_kernels() -> dict:
               for shape in PROTOCOL_SHAPES
               for dtype in (torch.bfloat16, torch.float32)]
     with torch.inference_mode():
-        for (cin, h, w, cout), n, dtype, radius, batch, offsets in cases:
-            x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen,
-                                             batch)
-            if offsets == "far_outside":
-                off = off * 8.0
-            got = DCN_FWD(x, off, mask, wt, bias, radius)
-            ref = deform_conv_plain(x, off, mask, wt, bias, radius)
-            torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            rel = diff / max(scale, 1e-30)
-            ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
-            plain_ms = time_ms(lambda: deform_conv_plain(
-                x, off, mask, wt, bias, radius))
-            xc = x.permute(0, 3, 1, 2).contiguous()
-            wc = wt.permute(3, 2, 0, 1).contiguous().to(dtype)
-            conv_ms = time_ms(lambda: F.conv2d(xc, wc, padding=1))
-            bound, bound_by = _bound_ms(cin, h, w, cout, dtype, batch)
-            route, earlier = route_and_earlier_ms(
-                DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
-            # the same work sampling the regular grid (all offsets 0): says
-            # whether the gathers cost by their bytes or by their count
-            zero = torch.zeros_like(off)
-            grid_ms = time_ms(lambda: DCN_FWD(x, zero, mask, wt, bias,
-                                              radius))
-            row = {"batch": batch, "cin": cin, "h": h, "w": w, "cout": cout,
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "offsets": offsets, "per_frame": n,
-                   "route": route,
-                   "cuda_core_ms": earlier, "regular_grid_ms": grid_ms,
-                   "max_abs_err": diff, "max_rel_err": rel,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": bound_by, "conv2d_ref_ms": conv_ms}
-            rows.append(row)
-            log(f"[kernel] {json.dumps(row)}")
-            check(np.isfinite(diff) and rel <= TOLERANCE[dtype],
-                  f"dcn_fwd disagrees with its plain version: {row}")
+        for case in cases:
+            rows.append(_fwd_row(gen, *case))
     return {"rows": rows}
+
+
+@torch.inference_mode()
+def _fwd_row(gen, shape, n, dtype, radius, batch, offsets,
+             tag: str = "kernel") -> dict:
+    """The forward kernel against its plain version at one shape, timed:
+    its row (`n` launches of the shape a frame), checked to TOLERANCE."""
+    from side_tpu_torch.ops.dcn_cuda import DCN_FWD
+    from side_tpu_torch.ops.deform_conv import deform_conv_plain
+    cin, h, w, cout = shape
+    x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
+    if offsets == "far_outside":
+        off = off * 8.0
+    got = DCN_FWD(x, off, mask, wt, bias, radius)
+    ref = deform_conv_plain(x, off, mask, wt, bias, radius)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    rel = diff / max(scale, 1e-30)
+    ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
+    plain_ms = time_ms(lambda: deform_conv_plain(
+        x, off, mask, wt, bias, radius))
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    wc = wt.permute(3, 2, 0, 1).contiguous().to(dtype)
+    conv_ms = time_ms(lambda: F.conv2d(xc, wc, padding=1))
+    bound, bound_by = _bound_ms(cin, h, w, cout, dtype, batch)
+    route, earlier = route_and_earlier_ms(
+        DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
+    # the same work sampling the regular grid (all offsets 0): says
+    # whether the gathers cost by their bytes or by their count
+    zero = torch.zeros_like(off)
+    grid_ms = time_ms(lambda: DCN_FWD(x, zero, mask, wt, bias, radius))
+    row = {"batch": batch, "cin": cin, "h": h, "w": w, "cout": cout,
+           "dtype": str(dtype).replace("torch.", ""),
+           "radius": radius, "offsets": offsets, "per_frame": n,
+           "route": route,
+           "cuda_core_ms": earlier, "regular_grid_ms": grid_ms,
+           "max_abs_err": diff, "max_rel_err": rel,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "conv2d_ref_ms": conv_ms}
+    log(f"[{tag}] {json.dumps(row)}")
+    check(np.isfinite(diff) and rel <= TOLERANCE[dtype],
+          f"dcn_fwd disagrees with its plain version: {row}")
+    return row
 
 
 def phase_main_path() -> dict:
@@ -447,9 +484,6 @@ def phase_backward_kernels() -> dict:
     """The forward kernel against the plain version, and K2 and K3 against
     its autograd, at the training shapes; per kernel and case the largest
     error over its outputs."""
-    from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
-                                             DCN_FWD, dcn_route, dx_plan)
-    from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
     from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -480,92 +514,177 @@ def phase_backward_kernels() -> dict:
     cases += [(shape, 0, dtype, 1, TRAIN_BATCH, "far_outside")
               for shape in PROTOCOL_SHAPES
               for dtype in (torch.bfloat16, torch.float32)]
-    for (cin, h, w, cout), n, dtype, radius, batch, offsets in cases:
-        x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
-        if offsets == "at_radius":
-            off = torch.where(off > 0, 1.0, -1.0) * abs(radius)
-        elif offsets == "far_outside":
-            off = off * 8.0
-        g = torch.randn(x.shape[:3] + (cout,), generator=gen,
-                        device="cuda").to(dtype)
-        leaves = [t.clone().requires_grad_(True)
-                  for t in (x, off, mask, wt, bias)]
-        out = DcnFunction.apply(*leaves, radius)
-        out.backward(g)
-        got = [out.detach()] + [t.grad for t in leaves[:4]]
-        ref_in = [t.clone().requires_grad_(True)
-                  for t in (x, off, mask, wt, bias)]
-        ref_out = deform_conv_plain(*ref_in, radius)
-        want = [ref_out.detach()] + list(torch.autograd.grad(
-            ref_out, ref_in[:4], g, retain_graph=True))
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("out", "x", "offset", "mask", "weight"),
-                              got, want):
-            diff = (a.float() - b.float()).abs().max().item()
-            errs[name] = (diff, diff / max(b.float().abs().max().item(),
-                                           1e-30))
-        plan = (dx_plan(batch, h, w, cin, cout, radius)
-                if dcn_route(dtype, cin, cout) == "tensor"
-                else {"scatter": "tile", "patch_h": 0})
-        seam = _border_and_seams(h, w, plan["patch_h"])
-        border_err = ((got[1].float() - want[1].float())[:, seam].abs().max()
-                      / want[1].float()[:, seam].abs().max()).item()
-        with torch.no_grad():
-            fwd_ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
-            fwd_plain = time_ms(lambda: deform_conv_plain(
-                x, off, mask, wt, bias, radius))
-        k2_ms = time_ms(lambda: DCN_BWD_DX(g, off, mask, wt, radius))
-        k3_ms = time_ms(lambda: DCN_BWD_DCOORD(x, g, off, mask, wt, radius))
-        k2_plain = time_ms(lambda: torch.autograd.grad(
-            ref_out, ref_in[0], g, retain_graph=True))
-        k3_plain = time_ms(lambda: torch.autograd.grad(
-            ref_out, ref_in[1:4], g, retain_graph=True))
-        bounds = _bwd_bound_ms(cin, h, w, cout, dtype, batch)
-        bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, batch)
-        del ref_out
-        with torch.no_grad():
-            fwd_route = route_and_earlier_ms(
-                DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
-        k3_route = route_and_earlier_ms(
-            DCN_BWD_DCOORD, (x, g, off, mask, wt, radius), cin, cout, dtype)
-        k2_route = route_and_earlier_ms(
-            DCN_BWD_DX, (g, off, mask, wt, radius), cin, cout, dtype)
-        k2_extra = {"scatter": plan["scatter"] if k2_route[0] == "tensor"
-                    else None, "tile_ms": None,
-                    "max_rel_err_border": border_err}
-        if plan["scatter"] == "patch":
-            k2_extra["tile_ms"] = time_ms(lambda: DCN_BWD_DX(
-                g, off, mask, wt, radius, scatter="tile"))
-        for name, ms, plain_ms, parts, (route, earlier) in (
-                ("dcn_fwd", fwd_ms, fwd_plain, ("out",), fwd_route),
-                ("dcn_bwd_dx", k2_ms, k2_plain, ("x",), k2_route),
-                ("dcn_bwd_dcoord", k3_ms, k3_plain,
-                 ("offset", "mask", "weight"), k3_route)):
-            row = {"kernel": name, "batch": batch, "cin": cin, "h": h,
-                   "w": w, "cout": cout,
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "radius": radius, "offsets": offsets, "per_step": n,
-                   "route": route, "cuda_core_ms": earlier,
-                   "max_abs_err": max(errs[p][0] for p in parts),
-                   "max_rel_err": max(errs[p][1] for p in parts),
-                   "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
-            if name == "dcn_bwd_dx":
-                row.update(k2_extra)
-            rows.append(row)
-            log(f"[backward] {json.dumps(row)}")
-            tol = (TOLERANCE if name == "dcn_fwd" else BWD_TOLERANCE)[dtype]
-            check(np.isfinite(row["max_rel_err"]) and
-                  row["max_rel_err"] <= tol,
-                  f"{name} disagrees with the plain version: {row} {errs}")
-            # a halo one pixel short would show here, not under the max
-            # over the interior
-            check(name != "dcn_bwd_dx" or (np.isfinite(border_err) and
-                                           border_err <= tol),
-                  f"dcn_bwd_dx disagrees on the border and seam pixels: "
-                  f"{row}")
-    return {"rows": rows}
+    for case in cases:
+        rows += _bwd_rows(gen, *case)
+    # phase 11's setting: the training and the protocol shapes, bf16, R=1
+    det = []
+    for shapes, offsets in ((SERVING_SHAPES, "random"),
+                            (zip(PROTOCOL_SHAPES,
+                                 [n for _, n in SERVING_SHAPES]),
+                             "far_outside")):
+        for shape, n in shapes:
+            det += _deterministic_rows(gen, shape, n, TRAIN_BATCH, offsets)
+    return {"rows": rows, "deterministic": det}
+
+
+def _deterministic_rows(gen, shape, n, batch, offsets) -> list:
+    """K2 and K3 under `deterministic_mode` at one bf16 shape, R=1: against
+    autograd of the plain version (phase 5's tolerance; d_x also over the
+    border and patch seams), K2 on its patch body, two calls equal bit for
+    bit; timed beside the default route (`default_ms`)."""
+    from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
+                                             deterministic_mode, dx_plan)
+    from side_tpu_torch.ops.deform_conv import deform_conv_plain
+    cin, h, w, cout = shape
+    dtype = torch.bfloat16
+    x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
+    if offsets == "far_outside":
+        off = off * 8.0
+    g = torch.randn(x.shape[:3] + (cout,), generator=gen,
+                    device="cuda").to(dtype)
+    ref_in = [t.clone().requires_grad_(True)
+              for t in (x, off, mask, wt, bias)]
+    want = torch.autograd.grad(deform_conv_plain(*ref_in, 1), ref_in[:4], g)
+    k2 = lambda: DCN_BWD_DX(g, off, mask, wt, 1)              # noqa: E731
+    k3 = lambda: DCN_BWD_DCOORD(x, g, off, mask, wt, 1)       # noqa: E731
+    with deterministic_mode():
+        runs = [(k2(), *k3()) for _ in range(2)]
+        ms = {"dcn_bwd_dx": time_ms(k2), "dcn_bwd_dcoord": time_ms(k3)}
+    default_ms = {"dcn_bwd_dx": time_ms(k2), "dcn_bwd_dcoord": time_ms(k3)}
+    torch.cuda.synchronize()
+    plan = dx_plan(batch, h, w, cin, cout, 1, deterministic=True)
+    seam = _border_and_seams(h, w, plan["patch_h"])
+
+    def err(a, b):
+        diff = (a.float() - b.float()).abs().max().item()
+        return diff, diff / max(b.float().abs().max().item(), 1e-30)
+    errs = [err(a, b.reshape(a.shape)) for a, b in zip(runs[0], want)]
+    border = err(runs[0][0][:, seam], want[0][:, seam])[1]
+    rows = []
+    for name, parts in (("dcn_bwd_dx", (0,)), ("dcn_bwd_dcoord", (1, 2, 3))):
+        row = {"kernel": name, "batch": batch, "cin": cin, "h": h, "w": w,
+               "cout": cout, "dtype": "bfloat16", "radius": 1,
+               "offsets": offsets, "per_step": n, "deterministic": True,
+               "repeat_equal": all(torch.equal(runs[0][i], runs[1][i])
+                                   for i in parts),
+               "max_abs_err": max(errs[i][0] for i in parts),
+               "max_rel_err": max(errs[i][1] for i in parts),
+               "ms": ms[name], "default_ms": default_ms[name]}
+        if name == "dcn_bwd_dx":
+            row.update(scatter=plan["scatter"], patch_h=plan["patch_h"],
+                       max_rel_err_border=border)
+        rows.append(row)
+        log(f"[backward, deterministic] {json.dumps(row)}")
+        tol = BWD_TOLERANCE[dtype]
+        check(np.isfinite(row["max_rel_err"]) and row["max_rel_err"] <= tol,
+              f"{name} (deterministic) disagrees with the plain version: "
+              f"{row}")
+        check(row["repeat_equal"],
+              f"{name} (deterministic) gave other bits on a second call: "
+              f"{row}")
+        check(name != "dcn_bwd_dx" or (
+            plan["scatter"] == "patch" and np.isfinite(border)
+            and border <= tol),
+            f"dcn_bwd_dx (deterministic) off the patch body or disagrees "
+            f"on the border and seam pixels: {row}")
+    return rows
+
+
+def _bwd_rows(gen, shape, n, dtype, radius, batch, offsets,
+              tag: str = "backward") -> list:
+    """The forward kernel against the plain version and K2 and K3 against
+    its autograd at one shape, timed: one row per kernel (`n` launches of
+    the shape a step), each checked to its tolerance."""
+    from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX,
+                                             DCN_FWD, dcn_route, dx_plan)
+    from side_tpu_torch.ops.deform_conv import DcnFunction, deform_conv_plain
+    cin, h, w, cout = shape
+    rows = []
+    x, off, mask, wt, bias = _inputs(cin, h, w, cout, dtype, gen, batch)
+    if offsets == "at_radius":
+        off = torch.where(off > 0, 1.0, -1.0) * abs(radius)
+    elif offsets == "far_outside":
+        off = off * 8.0
+    g = torch.randn(x.shape[:3] + (cout,), generator=gen,
+                    device="cuda").to(dtype)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, off, mask, wt, bias)]
+    out = DcnFunction.apply(*leaves, radius)
+    out.backward(g)
+    got = [out.detach()] + [t.grad for t in leaves[:4]]
+    ref_in = [t.clone().requires_grad_(True)
+              for t in (x, off, mask, wt, bias)]
+    ref_out = deform_conv_plain(*ref_in, radius)
+    want = [ref_out.detach()] + list(torch.autograd.grad(
+        ref_out, ref_in[:4], g, retain_graph=True))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("out", "x", "offset", "mask", "weight"),
+                          got, want):
+        diff = (a.float() - b.float()).abs().max().item()
+        errs[name] = (diff, diff / max(b.float().abs().max().item(),
+                                       1e-30))
+    plan = (dx_plan(batch, h, w, cin, cout, radius)
+            if dcn_route(dtype, cin, cout) == "tensor"
+            else {"scatter": "tile", "patch_h": 0})
+    seam = _border_and_seams(h, w, plan["patch_h"])
+    border_err = ((got[1].float() - want[1].float())[:, seam].abs().max()
+                  / want[1].float()[:, seam].abs().max()).item()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: DCN_FWD(x, off, mask, wt, bias, radius))
+        fwd_plain = time_ms(lambda: deform_conv_plain(
+            x, off, mask, wt, bias, radius))
+    k2_ms = time_ms(lambda: DCN_BWD_DX(g, off, mask, wt, radius))
+    k3_ms = time_ms(lambda: DCN_BWD_DCOORD(x, g, off, mask, wt, radius))
+    k2_plain = time_ms(lambda: torch.autograd.grad(
+        ref_out, ref_in[0], g, retain_graph=True))
+    k3_plain = time_ms(lambda: torch.autograd.grad(
+        ref_out, ref_in[1:4], g, retain_graph=True))
+    bounds = _bwd_bound_ms(cin, h, w, cout, dtype, batch)
+    bounds["dcn_fwd"] = _bound_ms(cin, h, w, cout, dtype, batch)
+    del ref_out
+    with torch.no_grad():
+        fwd_route = route_and_earlier_ms(
+            DCN_FWD, (x, off, mask, wt, bias, radius), cin, cout, dtype)
+    k3_route = route_and_earlier_ms(
+        DCN_BWD_DCOORD, (x, g, off, mask, wt, radius), cin, cout, dtype)
+    k2_route = route_and_earlier_ms(
+        DCN_BWD_DX, (g, off, mask, wt, radius), cin, cout, dtype)
+    k2_extra = {"scatter": plan["scatter"] if k2_route[0] == "tensor"
+                else None, "tile_ms": None,
+                "max_rel_err_border": border_err}
+    if plan["scatter"] == "patch":
+        k2_extra["tile_ms"] = time_ms(lambda: DCN_BWD_DX(
+            g, off, mask, wt, radius, scatter="tile"))
+    for name, ms, plain_ms, parts, (route, earlier) in (
+            ("dcn_fwd", fwd_ms, fwd_plain, ("out",), fwd_route),
+            ("dcn_bwd_dx", k2_ms, k2_plain, ("x",), k2_route),
+            ("dcn_bwd_dcoord", k3_ms, k3_plain,
+             ("offset", "mask", "weight"), k3_route)):
+        row = {"kernel": name, "batch": batch, "cin": cin, "h": h,
+               "w": w, "cout": cout,
+               "dtype": str(dtype).replace("torch.", ""),
+               "radius": radius, "offsets": offsets, "per_step": n,
+               "route": route, "cuda_core_ms": earlier,
+               "max_abs_err": max(errs[p][0] for p in parts),
+               "max_rel_err": max(errs[p][1] for p in parts),
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        if name == "dcn_bwd_dx":
+            row.update(k2_extra)
+        rows.append(row)
+        log(f"[{tag}] {json.dumps(row)}")
+        tol = (TOLERANCE if name == "dcn_fwd" else BWD_TOLERANCE)[dtype]
+        check(np.isfinite(row["max_rel_err"]) and
+              row["max_rel_err"] <= tol,
+              f"{name} disagrees with the plain version: {row} {errs}")
+        # a halo one pixel short would show here, not under the max
+        # over the interior
+        check(name != "dcn_bwd_dx" or (np.isfinite(border_err) and
+                                       border_err <= tol),
+              f"dcn_bwd_dx disagrees on the border and seam pixels: "
+              f"{row}")
+    return rows
 
 
 def _batch_stats(model):
@@ -1129,6 +1248,19 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
 # the protocol phase 11 trains, in bf16: (scenes, pairs per step, epochs),
 # as tests/test_overfit_ap.py runs its 16-scene protocol
 TRAINED_RUN = (16, 4, 240)
+REPEAT_EPOCHS = 2              # of phase 11's repeatability check
+
+
+def _protocol_digest(tmp: str, epochs: int) -> str:
+    """The weights digest after `epochs` epochs of phase 11's protocol from
+    its seed-0 weights (detection without the dense alignment)."""
+    from side_tpu_torch.tools import acceptance_16 as acc
+    n, batch, _ = TRAINED_RUN
+    cap = {}
+    acc.run_overfit_ap(tmp, epochs=epochs, n_scenes=n, batch_size=batch,
+                       compute_dtype="bfloat16", run_align=False,
+                       _capture=cap)
+    return cap["timing"]["weights_digest"]
 
 
 def phase_trained_checkpoint() -> dict:
@@ -1141,8 +1273,18 @@ def phase_trained_checkpoint() -> dict:
     trained checkpoint, eval_batch 4 fused against eval_batch 1 unfused:
     every row above peak_thresh of either run has its partner in the
     other, under VAL_MATCH_RULE.  The JAX tests' quality floors are not
-    held here: the acceptance is `acceptance_16 --check` (ROADMAP.md)."""
-    import os
+    held here: the acceptance is `acceptance_16 --check` (ROADMAP.md).
+    All of it runs under `deterministic_mode`, and first two short runs of
+    the protocol must end in the same weights: the phase's outcome is then
+    the same every run on one card and software stack, where the default
+    kernels' f32 atomics made the trained model, and with it the checks on
+    its detections, differ from run to run."""
+    from side_tpu_torch.ops.dcn_cuda import deterministic_mode
+    with deterministic_mode():
+        return _trained_checkpoint()
+
+
+def _trained_checkpoint() -> dict:
     import tempfile
     from dataclasses import replace
     from side_tpu_torch import val
@@ -1154,6 +1296,13 @@ def phase_trained_checkpoint() -> dict:
     t_phase = time.perf_counter()
     n, batch, epochs = TRAINED_RUN
     with tempfile.TemporaryDirectory() as tmp:
+        repeat = [_protocol_digest(os.path.join(tmp, f"repeat{i}"),
+                                   REPEAT_EPOCHS) for i in range(2)]
+        log(f"[trained] {REPEAT_EPOCHS} epochs twice, weights digests "
+            f"{repeat}")
+        check(repeat[0] == repeat[1],
+              f"two runs of {REPEAT_EPOCHS} epochs under deterministic_mode "
+              f"ended in other weights: {repeat}")
         cap = {}
         # the counted run: every count set to 0 just before
         reset_counts(KERNELS)
@@ -1192,13 +1341,16 @@ def phase_trained_checkpoint() -> dict:
                "detect_s": timing["detect_s"], "detect_frames": frames,
                "final_loss": timing["final_loss"],
                "launches": launches, "summary": summary,
+               "weights_digest": timing["weights_digest"],
                "convention_failed": acc.convention_failures(res)}
         log(f"[trained] {n} scenes, {batch} pairs a step, {epochs} epochs: "
             f"{steps} steps in {timing['train_s']:.1f} s "
             f"({timing['s_per_epoch']:.3f} s per epoch, "
             f"{timing['ms_per_step']:.1f} ms per step), detection of "
             f"{frames} frames {timing['detect_s']:.1f} s, run {wall:.1f} s; "
-            f"launches {json.dumps(launches)}")
+            f"launches {json.dumps(launches)}; final loss "
+            f"{json.dumps(timing['final_loss'])}; weights digest "
+            f"{timing['weights_digest']}")
         log(f"[trained] clean run, per GT object: "
             + json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
                            for k, v in e.items()} for e in res["clean"][1]]))
@@ -1237,6 +1389,378 @@ def phase_trained_checkpoint() -> dict:
               f"disagree: {match}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[trained] phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------- phase 12: model zoo
+RESDCN = dict(arch="resdcn_18", head_conv=64, cost_volume=False)
+ZOO_FRAMES = 3
+ZOO_STEPS = 3
+# K5 on the voxel path: (images, objects per image) of a serving frame
+# (K = 100 decoded slots) and of a training step's view (4 pairs, max_objs
+# 50 GT slots); each object samples VOXEL_RES**3 = 1000 voxels
+VOXEL_GATHER_CASES = ((1, 100), (4, 50))
+# the gather's f32 output against its plain version: equal up to fused
+# multiply-add contraction (phase 9's f32 bound); its backward (the
+# scatter-add in PyTorch) against autograd of the plain version
+GATHER_TOL, GATHER_BWD_TOL = 1e-6, 1e-5
+# --remat against the plain step from the same weights and batch: the
+# recompute runs the same kernels on the same values; loss parts and the
+# running statistics to one bf16 unit in the last place
+REMAT_TOL = 2.0 ** -8
+
+
+def _zoo_dcn_kernels() -> dict:
+    """(a) the forward kernel (B=2 and B=8), K2 and K3 (B=8) at resdcn_18's
+    three DeformBlock shapes, bf16 and f32, R=1."""
+    from side_tpu_torch.models.resnet_dcn import deform_shapes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    fwd, bwd = [], []
+    for shape in deform_shapes(18):
+        for dtype in (torch.bfloat16, torch.float32):
+            fwd.append(_fwd_row(gen, shape, 1, dtype, 1, BATCH, "random",
+                                tag="zoo dcn"))
+            bwd += _bwd_rows(gen, shape, 1, dtype, 1, TRAIN_BATCH, "random",
+                             tag="zoo dcn")
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _voxel_samples(images: int, objects: int, rng):
+    """The left view's voxel coordinates of `objects` random cars per image
+    at 384x1280 (KITTI calibration, 375x1242 frames, 5-45 m away), as the
+    voxel variant computes them; returns the gather's operands and the
+    clipped sample positions (v, u), (images, objects * 1000)."""
+    from side_tpu_torch.data import geometry as G
+    from side_tpu_torch.models.voxel_net import sample_corners, voxel_coords
+    from side_tpu_torch.runtime.synthetic import KITTI_H, KITTI_W, kitti_calib
+    calib = kitti_calib()
+    p2 = np.asarray(calib[2], np.float32)
+    p3 = np.asarray(calib[3], np.float32)
+    c = np.array([KITTI_W / 2.0, KITTI_H / 2.0], np.float32)
+    s = np.array([KITTI_W, KITTI_H], np.float32)
+    trans = G.get_affine_transform(c, s, 0, [320, 96])
+    trans_inv = G.get_affine_transform(c, s, 0, [320, 96], inv=True)
+    fb = float(p2[0, 3] - p3[0, 3])
+    cx = rng.uniform(20, 300, (images, objects))
+    cy = rng.uniform(30, 70, (images, objects))
+    disp = fb / rng.uniform(5, 45, (images, objects)) / trans_inv[0, 0]
+    half = rng.uniform(2, 10, (images, objects, 2))
+    bbox = np.stack([cx - half[..., 0], cy - half[..., 1],
+                     cx + half[..., 0], cy + half[..., 1]], -1)
+    bbox_r = bbox - np.stack([disp, 0 * disp, disp, 0 * disp], -1)
+
+    def dev(a):
+        a = np.asarray(a, np.float32)
+        return torch.from_numpy(np.broadcast_to(
+            a, (images,) + a.shape[-2:]) if a.ndim == 2 else a).cuda()
+    cl, _, vl, _, _ = voxel_coords(
+        dev(bbox), dev(bbox_r), torch.full((images,), fb, device="cuda"),
+        dev(p2), dev(p3), dev(trans), dev(trans_inv), 320, 96)
+    y0, x0, fy, fx = sample_corners(cl, vl, 96, 320)
+    v = (y0.float() + fy).reshape(images, -1)
+    u = (x0.float() + fx).reshape(images, -1)
+    return (y0.reshape(-1), x0.reshape(-1), fy.reshape(-1), fx.reshape(-1),
+            v, u, float(vl.float().mean()))
+
+
+def _zoo_gather() -> dict:
+    """(b) K5 at the voxel path's shapes, f32 output, bf16 and f32 maps;
+    its autograd backward against the plain version's gradient."""
+    from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
+                                                GatherBilinearFunction,
+                                                gather_bilinear_plain)
+    from side_tpu_torch.tools import gather_microbench as probe
+    rng = np.random.RandomState(12)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = []
+    for images, objects in VOXEL_GATHER_CASES:
+        y0, x0, fy, fx, v, u, in_map = _voxel_samples(images, objects, rng)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(images, 96, 320, 64, generator=gen,
+                            device="cuda").to(dtype)
+            with torch.inference_mode():
+                got = GATHER_BILINEAR(x, y0, x0, fy, fx,
+                                      out_dtype=torch.float32)
+                ref = gather_bilinear_plain(x, y0, x0, fy, fx,
+                                            torch.float32)
+                torch.cuda.synchronize()
+                diff = (got - ref).abs().max().item()
+                top = ref.abs().max().item()
+                S, C = got.shape
+                nbytes = S * C * 4 + x.numel() * x.element_size() + S * 16
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = S * C * 8 / PEAK_FLOPS[torch.float32]
+                x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                row = {"kernel": "gather_bilinear",
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "out_dtype": "float32", "x": list(x.shape),
+                       "images": images, "objects": objects,
+                       "samples": S, "in_map_share": in_map,
+                       "max_abs_err": diff, "max_rel_err": diff / top,
+                       "ms": time_ms(lambda: GATHER_BILINEAR(
+                           x, y0, x0, fy, fx, out_dtype=torch.float32)),
+                       "plain_ms": time_ms(lambda: gather_bilinear_plain(
+                           x, y0, x0, fy, fx, torch.float32)),
+                       "library_ms": time_ms(lambda: probe.grid_sample_call(
+                           x_nchw, v, u)),
+                       "bytes": nbytes,
+                       "bound_ms": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+            if dtype == torch.float32:
+                xg = x.clone().requires_grad_(True)
+                out = GatherBilinearFunction.apply(xg, y0, x0, fy, fx,
+                                                   torch.float32)
+                g = torch.randn(out.shape, generator=gen, device="cuda")
+                out.backward(g)
+                xp = x.clone().requires_grad_(True)
+                gather_bilinear_plain(xp, y0, x0, fy, fx).backward(g)
+                bwd = (xg.grad - xp.grad).abs().max().item()
+                row["bwd_rel_err"] = bwd / xp.grad.abs().max().item()
+                row["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                    GatherBilinearFunction.apply(xg, y0, x0, fy, fx,
+                                                 torch.float32), xg, g))
+                check(row["bwd_rel_err"] <= GATHER_BWD_TOL,
+                      f"the gather's backward disagrees: {row}")
+            rows.append(row)
+            log(f"[zoo gather] {json.dumps(row)}")
+            check(np.isfinite(diff) and diff <= GATHER_TOL * top,
+                  f"gather_bilinear (f32 out) disagrees: {row}")
+    return {"rows": rows}
+
+
+def _counts(kernels) -> dict:
+    out = {name: k.launches for name, k in kernels.items()}
+    out.update({f"{name}_tensor_core": k.tensor_core_launches
+                for name, k in kernels.items()
+                if hasattr(k, "tensor_core_launches")})
+    return out
+
+
+def _zoo_detect(label: str, cfg, per_frame: dict) -> dict:
+    """Detector.run on ZOO_FRAMES random frames at full width; every frame
+    launches per_frame[name] of each kernel, DCN launches on the tensor-core
+    route, and gives K finite rows."""
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.ops.gather_cuda import GATHER_BILINEAR
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.synthetic import (he_scale, kitti_calib,
+                                                  perturb_offsets,
+                                                  random_frame)
+    kernels = dict(KERNELS, gather_bilinear=GATHER_BILINEAR)
+    det = Detector(cfg)
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=1)
+    rng = np.random.RandomState(3)
+    frames = [random_frame(rng) for _ in range(ZOO_FRAMES)]
+    calib = kitti_calib()
+    reset_counts(kernels)
+    times = []
+    for i, f in enumerate(frames):
+        pending = det.dispatch(det.load_and_pre(f, calib))
+        rows = pending["handles"][0]
+        out = det.finish(pending)
+        check(tuple(rows.shape) == (cfg.K, 13) and
+              bool(torch.isfinite(rows).all()),
+              f"{label} frame {i}: rows {tuple(rows.shape)} not finite")
+        times.append({k: out[k] * 1e3 for k in STAGES})
+    counts = _counts(kernels)
+    log(f"[zoo {label}] frames (ms): {json.dumps(times)}; launches "
+        f"{json.dumps(counts)}")
+    for name in kernels:
+        want = per_frame.get(name, 0) * len(frames)
+        check(counts[name] == want, f"{label}: {name} launched "
+              f"{counts[name]} times in {len(frames)} frames, want {want}")
+        if f"{name}_tensor_core" in counts:
+            check(counts[f"{name}_tensor_core"] == want,
+                  f"{label}: {name} off the tensor-core route")
+    return {"frames_ms": times, "launches": counts,
+            "tot_ms_median": statistics.median(t["tot"] for t in times[1:])}
+
+
+def _zoo_train(label: str, per_step: dict, **overrides) -> dict:
+    """ZOO_STEPS Trainer.train_steps at 4 pairs (max_objs 50) at full width:
+    finite loss parts, per_step[name] launches of each kernel a step, DCN
+    launches on the tensor-core route; step times and the peak memory."""
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.ops.gather_cuda import GATHER_BILINEAR
+    from side_tpu_torch.stage_profile import flagship_trainer
+    kernels = dict(KERNELS, gather_bilinear=GATHER_BILINEAR)
+    tr, batches = flagship_trainer(ZOO_STEPS, **overrides)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    step_ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.train_step(tr.to_device(b))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in stats.items()})
+    counts = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[zoo {label}] steps (ms): {step_ms}; losses {json.dumps(losses)}; "
+        f"launches {json.dumps(counts)}; peak {peak:.2f} GiB")
+    for i, st in enumerate(losses):
+        check(set(st) == set(tr.loss_states) and
+              all(np.isfinite(v) for v in st.values()),
+              f"{label} step {i}: loss parts {st}")
+    for name in kernels:
+        want = per_step.get(name, 0) * len(batches)
+        check(counts[name] == want, f"{label}: {name} launched "
+              f"{counts[name]} times in {len(batches)} steps, want {want}")
+        if f"{name}_tensor_core" in counts:
+            check(counts[f"{name}_tensor_core"] == want,
+                  f"{label}: {name} off the tensor-core route")
+    del tr, batches
+    return {"step_ms": step_ms, "step_ms_median": statistics.median(
+        step_ms[1:]), "losses": losses, "launches": counts,
+        "peak_mem_gib": peak}
+
+
+def _zoo_forwards() -> dict:
+    """(e) dlaseg_34 (stereo, batch 1) and the monocular res_18 and
+    dlav0_34 forward at full width: head shapes and finite values."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.ops.dcn_cuda import DCN_FWD
+    from side_tpu_torch.runtime.synthetic import he_scale
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    out = {}
+    for arch, kw in (("dlaseg_34", dict(cost_volume=False)),
+                     ("res_18", dict(head_conv=64)), ("dlav0_34", {})):
+        cfg = Config(arch=arch, **kw)
+        model = create_model(cfg, seed=4).cuda().eval()
+        he_scale(model)
+        x = torch.randn(1, cfg.input_h, cfg.input_w, 3, generator=gen,
+                        device="cuda")
+        arg = ({"input": x, "input_right": x.roll(-24, dims=2)}
+               if arch == "dlaseg_34" else x)
+        DCN_FWD.launches = 0
+        with torch.inference_mode():
+            model(arg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            heads = model(arg)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, ch in cfg.heads.items():
+            t = heads[name]
+            check(tuple(t.shape) == (1, cfg.output_h, cfg.output_w, ch)
+                  and bool(torch.isfinite(t).all()),
+                  f"{arch} {name}: {tuple(t.shape)} or not finite")
+        out[arch] = {"ms": ms, "dcn_fwd_launches": DCN_FWD.launches // 2}
+        log(f"[zoo forward] {arch}: {ms:.2f} ms, heads "
+            f"{sorted(heads)}, {DCN_FWD.launches // 2} dcn_fwd a forward")
+        del model
+    return out
+
+
+def _zoo_remat() -> dict:
+    """(f) one flagship step with and one without --remat from the same
+    weights and batch: loss parts and running statistics agree, the
+    feature extractor's recompute leaves the statistics alone (they blend
+    once), and the peak memory with --remat is the lower."""
+    import gc
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.models import dla
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.trainer import Trainer
+    from side_tpu_torch.stage_profile import flagship_trainer
+    tr, batches = flagship_trainer(1)
+    state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    stats0 = _batch_stats(tr.model)
+    del tr
+    out = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = Config(batch_size=4, remat=remat)
+        model = create_model(cfg, seed=21)
+        model.load_state_dict(state)
+        tr = Trainer(cfg, model, steps_per_epoch=100)
+        calls = []
+        hook = tr.model.feature_extraction.register_forward_pre_hook(
+            lambda m, a: calls.append(dla._frozen_statistics))
+        b = tr.to_device(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st = tr.train_step(b)
+        torch.cuda.synchronize()
+        hook.remove()
+        out[remat] = {"losses": {k: float(v) for k, v in st.items()},
+                      "stats": _batch_stats(tr.model), "calls": calls,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "step_peak_gib": (torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 30}
+        # the step's time: two more steps (the first one warms up)
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tr.train_step(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[remat]["step_ms"] = ms[-1]
+        del tr, model, b
+    plain, remat = out[False], out[True]
+    loss_err = max(abs(remat["losses"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in plain["losses"].items())
+    stat_err = max(((remat["stats"][k] - v).abs().max() /
+                    v.abs().max().clamp(min=1e-30)).item()
+                   for k, v in plain["stats"].items())
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in remat["stats"].items())
+    res = {"loss_rel_err": loss_err, "stats_rel_err": stat_err,
+           "stats_moved": moved, "stats": len(stats0),
+           "feature_passes": {"plain": plain["calls"],
+                              "remat": remat["calls"]},
+           "peak_gib": {"plain": plain["peak_gib"],
+                        "remat": remat["peak_gib"]},
+           "step_peak_gib": {"plain": plain["step_peak_gib"],
+                             "remat": remat["step_peak_gib"]},
+           "step_ms": {"plain": plain["step_ms"], "remat": remat["step_ms"]},
+           "losses": {"plain": plain["losses"], "remat": remat["losses"]}}
+    log(f"[zoo remat] {json.dumps(res)}")
+    check(plain["calls"] == [False] and remat["calls"] == [False, True],
+          f"feature-extractor passes {res['feature_passes']}")
+    check(loss_err <= REMAT_TOL, f"--remat loss parts differ by {loss_err}")
+    check(stat_err <= REMAT_TOL and moved == len(stats0),
+          f"--remat running statistics: {stat_err}, {moved} moved")
+    check(remat["peak_gib"] < plain["peak_gib"],
+          f"--remat peak {remat['peak_gib']:.2f} GiB not below "
+          f"{plain['peak_gib']:.2f} GiB")
+    return res
+
+
+def phase_model_zoo() -> dict:
+    """Phase 12: the models beyond the flagship, at full width, bf16."""
+    from side_tpu_torch.config import Config
+    t0 = time.perf_counter()
+    out = {"dcn": _zoo_dcn_kernels(), "gather": _zoo_gather()}
+    dcn16 = {"dcn_fwd": 16}
+    out["voxel_detect"] = _zoo_detect(
+        "voxel serving", Config(depth_variant="voxel"),
+        dict(dcn16, gather_bilinear=2))
+    out["voxel_train"] = _zoo_train(
+        "voxel training", {"dcn_fwd": 16, "dcn_bwd_dx": 16,
+                           "dcn_bwd_dcoord": 16, "gather_bilinear": 2},
+        depth_variant="voxel")
+    out["resdcn_detect"] = _zoo_detect("resdcn_18 serving",
+                                       Config(**RESDCN), {"dcn_fwd": 3})
+    out["resdcn_train"] = _zoo_train(
+        "resdcn_18 training", {"dcn_fwd": 3, "dcn_bwd_dx": 3,
+                               "dcn_bwd_dcoord": 3}, **RESDCN)
+    out["forwards"] = _zoo_forwards()
+    out["remat"] = _zoo_remat()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[zoo] phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -1284,6 +1808,7 @@ def main() -> int:
     gather = phase_gather_kernel()
     validation = phase_validation()
     trained = phase_trained_checkpoint()
+    zoo = phase_model_zoo()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -1364,6 +1889,19 @@ def main() -> int:
             "unit": "one training step (16 launches, B=8, bf16)",
             "per_shape": rows,
         })
+        det = [r for r in bwd["deterministic"] if r["kernel"] == name]
+        train_det = [r for r in det if r["offsets"] == "random"]
+        entries[-1]["deterministic"] = {
+            "unit": "one training step under deterministic_mode (16 "
+                    "launches, B=8, bf16); protocol: one step of phase 11",
+            **{key: _per_unit(train_det, key, "per_step")
+               for key in ("ms", "default_ms")},
+            **{f"protocol_{key}": _per_unit(
+                [r for r in det if r["offsets"] == "far_outside"], key,
+                "per_step") for key in ("ms", "default_ms")},
+            "max_rel_err_bf16": max(r["max_rel_err"] for r in det),
+            "repeat_equal": all(r["repeat_equal"] for r in det),
+            "per_shape": det}
     entries[-2]["scatter_checked"] = {
         kind: sum(r.get("scatter") == kind for r in bwd["rows"])
         for kind in ("patch", "tile")}
@@ -1432,6 +1970,63 @@ def main() -> int:
             entry["launches_trained_run"] = trained["fused_launches"]
             entry["tensor_core_launches_trained_run"] = \
                 trained["fused_tensor_core_launches"]
+    # phase 12: the model zoo's launches and the resdcn_18 shapes
+    zoo_fwd = zoo["dcn"]["fwd"] + [r for r in zoo["dcn"]["bwd"]
+                                   if r["kernel"] == "dcn_fwd"]
+    for entry in entries:
+        name = entry["name"]
+        if name in ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord"):
+            rows = (zoo_fwd if name == "dcn_fwd" else
+                    [r for r in zoo["dcn"]["bwd"] if r["kernel"] == name])
+            unit = [r for r in rows if r["dtype"] == "bfloat16" and
+                    r["batch"] == (BATCH if name == "dcn_fwd"
+                                   else TRAIN_BATCH)]
+            count = "per_frame" if name == "dcn_fwd" else "per_step"
+            entry["model_zoo"] = {
+                "launches": {part: zoo[part]["launches"][name] for part in
+                             ("voxel_detect", "voxel_train", "resdcn_detect",
+                              "resdcn_train")},
+                "resdcn_18_unit": ("one resdcn_18 frame (3 launches, B=2, "
+                                   "bf16)" if name == "dcn_fwd" else
+                                   "one resdcn_18 step (3 launches, B=8, "
+                                   "bf16)"),
+                **{key: _per_unit(unit, key, count) for key in
+                   ("ms", "plain_ms", "bound_ms", "cuda_core_ms")},
+                "bound_by": _bound_by(unit, count),
+                "max_rel_err_bf16": max(r["max_rel_err"] for r in rows
+                                        if r["dtype"] == "bfloat16"),
+                "max_rel_err_f32": max(r["max_rel_err"] for r in rows
+                                       if r["dtype"] == "float32"),
+                "per_shape": rows}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["max_abs_err"] for r in rows))
+        elif name == "gather_bilinear":
+            serve = next(r for r in zoo["gather"]["rows"]
+                         if r["images"] == 1 and r["dtype"] == "bfloat16")
+            entry["probe"] = {k: entry[k] for k in (
+                "launches", "launches_path", "ms", "earlier_ms",
+                "l2_read_ms", "l2_bytes", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "unit")}
+            entry.update({
+                "launches": zoo["voxel_detect"]["launches"][name],
+                "launches_path": f"--depth_variant voxel serving, "
+                                 f"{ZOO_FRAMES} frames",
+                "launches_training": zoo["voxel_train"]["launches"][name],
+                "max_abs_err": max(entry["max_abs_err"], *(
+                    r["max_abs_err"] for r in zoo["gather"]["rows"])),
+                "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+                "bound_ms": serve["bound_ms"],
+                "bound_by": serve["bound_by"],
+                "library_ms": serve["library_ms"],
+                "library_call": entry["library_call"],
+                "unit": "the voxel path's serving launch: x (1, 96, 320, 64) "
+                        "bf16, 100 objects x 1000 voxels, f32 out",
+                "bwd_rel_err": max(r["bwd_rel_err"] for r in
+                                   zoo["gather"]["rows"]
+                                   if "bwd_rel_err" in r),
+                "per_shape_voxel": zoo["gather"]["rows"]})
+            for key in ("earlier_ms", "l2_read_ms", "l2_bytes"):
+                entry.pop(key)
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
@@ -1439,13 +2034,25 @@ def main() -> int:
         f"{json.dumps(trained['summary']['clean'])}; "
         f"{trained['s_per_epoch']:.3f} s per epoch, "
         f"{trained['ms_per_step']:.1f} ms per step, run "
-        f"{trained['wall_s']:.1f} s, phase {trained['phase_s']:.1f} s; "
+        f"{trained['wall_s']:.1f} s, phase {trained['phase_s']:.1f} s, "
+        f"weights digest {trained['weights_digest']}; "
         f"eval_batch 4 fused vs 1 unfused {json.dumps(trained['match'])}")
     log(f"[summary] train step {train['step_ms_median']:.1f} ms median, "
         f"split {json.dumps(train['split'])}, peak "
         f"{train['peak_mem_gib']:.2f} GiB; small-train check "
         f"{json.dumps(small_train)}; script "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[summary] model zoo: voxel frame "
+        f"{zoo['voxel_detect']['tot_ms_median']:.1f} ms, step "
+        f"{zoo['voxel_train']['step_ms_median']:.1f} ms (peak "
+        f"{zoo['voxel_train']['peak_mem_gib']:.2f} GiB); resdcn_18 "
+        f"--not_cost_volume frame "
+        f"{zoo['resdcn_detect']['tot_ms_median']:.1f} ms, step "
+        f"{zoo['resdcn_train']['step_ms_median']:.1f} ms (peak "
+        f"{zoo['resdcn_train']['peak_mem_gib']:.2f} GiB); forwards "
+        f"{json.dumps(zoo['forwards'])}; --remat peak "
+        f"{json.dumps(zoo['remat']['peak_gib'])} GiB; phase "
+        f"{zoo['phase_s']:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

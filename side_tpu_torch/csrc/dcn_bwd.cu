@@ -59,7 +59,9 @@
 //   the same bits every run.  The product runs over the halo too (1.9 to 2.5
 //   times the pixels), which at Cout 128 and 256 costs more than the device
 //   scatter it saves, as do the 25 slots of R = 2: there the "tile" body stays
-//   (PERF.md has both per shape).
+//   (PERF.md has both per shape).  Under torch.use_deterministic_algorithms the
+//   wrapper takes the patch body at every width of the window R = 1 (4 rows at
+//   Cout 256), so that d_x is the same bits every run.
 //   Its design is described at the kernel.
 // K3 has two routes, picked from dtype and shape alone (ops/dcn_cuda.py:
 // dcn_route).
@@ -96,7 +98,11 @@
 //   step 3 (val, two derivatives and the column value per corner quadruple, ~30
 //   operations a channel) and the latency between the four barriers of a tile.
 //   The order of those atomics changes from run to run: d_offset and d_mask move
-//   in their last f32 bits where Cin > 64 (d_W did before and does now).
+//   in their last f32 bits where Cin > 64 (d_W did before and does now).  Under
+//   torch.use_deterministic_algorithms each block writes its partial sums to a
+//   copy of its own (d_W one per slice, d_offset and d_mask one per channel
+//   tile) and the wrapper sums the copies in a fixed order: the same bits every
+//   run, for the bytes of those copies.
 //   Its one new rounding is W's, f32 to bf16, inside gW; col and g are bf16 on
 //   both routes already.
 //   Route 0, CUDA cores (f32, and bf16 at any other width): one launch, two kinds
@@ -594,13 +600,16 @@ constexpr int dcoord_mma_smem_bytes(int bn) {
 // f32, zeroed when C > 64 (at C == 64 they are written, not added to).
 // Block t: combo = t % (9 * C/64) -> (tap k, channel tile c0); slice = t / combos
 // -> a contiguous range of 64-pixel tiles.
+// det != 0 (torch.use_deterministic_algorithms): no atomics.  dw is (slices, 9,
+// C, BN) and doff, dmask (C/64, P, 9, 2), (C/64, P, 9) where C > 64, each written
+// in full by one block per element; the wrapper sums the copies in a fixed order.
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 2)
 dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                           const float* __restrict__ off, const float* __restrict__ mask,
                           const float* __restrict__ w, float* __restrict__ doff,
                           float* __restrict__ dmask, float* __restrict__ dw, int B, int H, int W,
-                          int C, int R, int slices) {
+                          int C, int R, int slices, int det) {
   using namespace dcn_mma;
   constexpr int WN = BN / 4;        // d_W warp tile: 32 channels x WN outputs
   constexpr int NI = WN / 8;
@@ -786,9 +795,11 @@ dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat
       if (cg == 0 && p0 + lp < P) {
         const size_t e = (size_t)(p0 + lp) * kTaps + k;
         const float2 d_yx = make_float2(m * s_dy * s_geo[192 + lp], m * s_dx * s_geo[256 + lp]);
-        if (one_ctile) {
-          dmask[e] = s_val;
-          *reinterpret_cast<float2*>(doff + 2 * e) = d_yx;
+        if (one_ctile || det) {
+          // deterministic: channel tile c0 / 64 writes its own partial sums
+          const size_t pe = e + (one_ctile ? 0 : (size_t)(c0 / 64) * P * kTaps);
+          dmask[pe] = s_val;
+          *reinterpret_cast<float2*>(doff + 2 * pe) = d_yx;
         } else {
           atomicAdd(dmask + e, s_val);
           atomicAdd(reinterpret_cast<float2*>(doff + 2 * e), d_yx);
@@ -822,19 +833,26 @@ dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat
     }
   }
 
-  // 5. this slice's share of d_W[k, c0 .. c0 + 64, :]
-  if (pt_begin < pt_end) {
+  // 5. this slice's share of d_W[k, c0 .. c0 + 64, :]: added to d_W, or
+  // (deterministic) written to the slice's own copy, zeros for an empty slice
+  if (det || pt_begin < pt_end) {
+    float* dst = dw + (det ? (size_t)slice * kTaps * C * BN : 0);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = c0 + wm * 32 + mi * 16 + (lane >> 2) + 8 * half;
-        float* row = dw + ((size_t)k * C + c) * BN;
+        float* row = dst + ((size_t)k * C + c) * BN;
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) {
           const int o = wn * WN + ni * 8 + (lane & 3) * 2;
-          atomicAdd(row + o, acc_w[mi][ni][2 * half]);
-          atomicAdd(row + o + 1, acc_w[mi][ni][2 * half + 1]);
+          if (det) {
+            *reinterpret_cast<float2*>(row + o) =
+                make_float2(acc_w[mi][ni][2 * half], acc_w[mi][ni][2 * half + 1]);
+          } else {
+            atomicAdd(row + o, acc_w[mi][ni][2 * half]);
+            atomicAdd(row + o + 1, acc_w[mi][ni][2 * half + 1]);
+          }
         }
       }
   }
@@ -843,7 +861,7 @@ dcn_bwd_dcoord_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat
 template <int BN>
 int launch_dcoord_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* off,
                       const float* mask, const float* w, float* doff, float* dmask, float* dw,
-                      int B, int H, int W, int C, int R, int slices, int smem_bytes,
+                      int B, int H, int W, int C, int R, int slices, int det, int smem_bytes,
                       cudaStream_t s) {
   constexpr int kSmem = dcoord_mma_smem_bytes(BN);
   if (smem_bytes != kSmem) return (int)cudaErrorInvalidValue;   // the caller's plan is another's
@@ -852,7 +870,8 @@ int launch_dcoord_mma(const __nv_bfloat16* x, const __nv_bfloat16* g, const floa
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(kTaps * (C / 64) * slices);
-  kernel<<<blocks, kThreads, kSmem, s>>>(x, g, off, mask, w, doff, dmask, dw, B, H, W, C, R, slices);
+  kernel<<<blocks, kThreads, kSmem, s>>>(x, g, off, mask, w, doff, dmask, dw, B, H, W, C, R, slices,
+                                         det);
   return (int)cudaGetLastError();
 }
 
@@ -1238,13 +1257,15 @@ int launch_dx_tensor(const __nv_bfloat16* g, const float* off, const float* mask
   if (patch_h == 0)
     return launch_dx_mma<BN>(g, off, mask, w, static_cast<float*>(dx), B, H, W, C, R, tap_splits,
                              smem_bytes, s);
-  // the patch route is built for Cout = 64 only (ops/dcn_cuda.py:dx_plan)
-  if (BN != 64) return (int)cudaErrorInvalidValue;
+  // the patch route: Cout 64, and every width in deterministic mode
+  // (ops/dcn_cuda.py:dx_plan); 8 rows at Cout 256 exceed a block's shared memory
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dx);
-  if (patch_h == 8)
-    return launch_dx_patch<64, 8>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
+  if constexpr (BN <= 128) {
+    if (patch_h == 8)
+      return launch_dx_patch<BN, 8>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
+  }
   if (patch_h == 4)
-    return launch_dx_patch<64, 4>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
+    return launch_dx_patch<BN, 4>(g, off, mask, w, out, B, H, W, C, R, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1259,8 +1280,9 @@ extern "C" {
 // cores, bf16 g only; `patch_h`, `tap_splits` and `smem_bytes` from
 // ops/dcn_cuda.py:dx_plan):
 // patch_h == 0 scatters to device memory, dx f32 and zero as on route 0;
-// patch_h 4 or 8 (radius 1, Cout 64) keeps the scatter in the block and writes
-// dx (B, H, W, C) bf16 in full.
+// patch_h 4 or 8 (radius 1; Cout 64, or any in deterministic mode; 4 only at
+// Cout 256) keeps the scatter in the block and writes dx (B, H, W, C) bf16 in
+// full.
 int dcn_bwd_dx_launch(const void* g, const void* off, const void* mask, const void* w, void* dx,
                       int B, int H, int W, int C, int Cout, int radius, int dtype, int route,
                       int patch_h, int tap_splits, int smem_bytes, void* stream) {
@@ -1305,11 +1327,12 @@ int dcn_bwd_dx_launch(const void* g, const void* off, const void* mask, const vo
 // are written in full and dw (3, 3, C, Cout) f32 must be zero.  route 1 (tensor
 // cores, bf16 only; `slices` and `smem_bytes` from ops/dcn_cuda.py:dcoord_plan):
 // dw must be zero, and doff and dmask too when C > 64 (at C == 64 they are
-// written in full).
+// written in full); with `deterministic` (route 1 only) dw holds `slices`
+// copies and doff, dmask C/64 copies where C > 64, all written in full.
 int dcn_bwd_dcoord_launch(const void* x, const void* g, const void* off, const void* mask,
                           const void* w, void* doff, void* dmask, void* dw, int B, int H, int W,
                           int C, int Cout, int radius, int dtype, int route, int slices,
-                          int smem_bytes, void* stream) {
+                          int deterministic, int smem_bytes, void* stream) {
   const long long P = (long long)B * H * W;
   const long long n_pt = (P + kTilePix - 1) / kTilePix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1327,17 +1350,18 @@ int dcn_bwd_dcoord_launch(const void* x, const void* g, const void* off, const v
     switch (Cout) {
       case 64:
         return launch_dcoord_mma<64>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
-                                     smem_bytes, s);
+                                     deterministic, smem_bytes, s);
       case 128:
         return launch_dcoord_mma<128>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
-                                      smem_bytes, s);
+                                      deterministic, smem_bytes, s);
       case 256:
         return launch_dcoord_mma<256>(xb, gb, of, mf, wf, d1, d2, d3, B, H, W, C, radius, slices,
-                                      smem_bytes, s);
+                                      deterministic, smem_bytes, s);
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
+  if (deterministic) return (int)cudaErrorInvalidValue;   // route 0 adds d_W with atomics
   const long long tiles =
       (long long)kTaps * ((C + kTileC - 1) / kTileC) * ((Cout + kTileC - 1) / kTileC);
   long long splits = (kWeightBlocks + tiles - 1) / tiles;

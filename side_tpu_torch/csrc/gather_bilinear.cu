@@ -4,7 +4,9 @@
 // (variant_E.kernel, launched at :130): for every sample s of image b = s / P,
 //   out[s, :] = sum over dy, dx in {0, 1} of
 //               x[b, min(y0[s]+dy, H-1), min(x0[s]+dx, W-1), :] * w_dydx(fy[s], fx[s])
-// with f32 accumulation, stored in x's dtype.  The TPU version holds one whole
+// with f32 accumulation, stored in x's dtype or, for bf16 x, in f32 (the
+// voxel depth variant's grid_sample_feats, whose JAX form promotes the bf16
+// rows to f32 at the first weight).  The TPU version holds one whole
 // image in VMEM per grid step and gathers rows from it; on a GPU the gather is
 // the native access, so each sample's four rows are read straight from device
 // memory (the image, 3.9 MB per batch element at the probe's shape, stays in
@@ -86,11 +88,11 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec])
 }
 
 // x: (B, H, W, C); y0, x0: (S,) int32; fy, fx: (S,) f32; out: (S, C); S = B * P.
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
 gather_bilinear_kernel(const T* __restrict__ x, const int* __restrict__ y0,
                        const int* __restrict__ x0, const float* __restrict__ fy,
-                       const float* __restrict__ fx, T* __restrict__ out,
+                       const float* __restrict__ fx, TO* __restrict__ out,
                        long long S, int P, int H, int W, int C) {
   const int groups = C / kVec;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -188,11 +190,11 @@ __device__ __forceinline__ Coord load_coord(const int* __restrict__ y0, const in
 }
 
 // x: (B, H, W, C), C = 8 G; y0, x0: (S,) int32; fy, fx: (S,) f32; out: (S, C).
-template <typename T, int G>
+template <typename T, typename TO, int G>
 __global__ void __launch_bounds__(kThreads)
 gather_bilinear_warp_kernel(const T* __restrict__ x, const int* __restrict__ y0,
                             const int* __restrict__ x0, const float* __restrict__ fy,
-                            const float* __restrict__ fx, T* __restrict__ out,
+                            const float* __restrict__ fx, TO* __restrict__ out,
                             long long S, int P, int H, int W) {
   using Raw = typename RawOf<T>::type;
   constexpr int C = G * kVec;
@@ -250,9 +252,9 @@ gather_bilinear_warp_kernel(const T* __restrict__ x, const int* __restrict__ y0,
   }
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_warp(const T* x, const int* y0, const int* x0, const float* fy, const float* fx,
-                T* out, long long S, int P, int H, int W, int G, cudaStream_t s) {
+                TO* out, long long S, int P, int H, int W, int G, cudaStream_t s) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -263,7 +265,7 @@ int launch_warp(const T* x, const int* y0, const int* x0, const float* fy, const
   const unsigned grid = (unsigned)(want < resident ? want : resident);
 #define GATHER_LAUNCH(GG)                                                                   \
   case GG:                                                                                  \
-    gather_bilinear_warp_kernel<T, GG><<<grid, kThreads, 0, s>>>(x, y0, x0, fy, fx, out, S, \
+    gather_bilinear_warp_kernel<T, TO, GG><<<grid, kThreads, 0, s>>>(x, y0, x0, fy, fx, out, S, \
                                                                  P, H, W);                  \
     break;
   switch (G) {
@@ -298,40 +300,43 @@ gather_l2_read_kernel(const uint4* __restrict__ x, long long n16, int passes,
   if (acc.x == 0x9e3779b9u && acc.y == 0x7f4a7c15u) *out = acc;
 }
 
+template <typename T, typename TO>
+int launch_typed(const T* x, const int* y0, const int* x0, const float* fy, const float* fx,
+                 TO* out, long long S, int P, int H, int W, int C, int body, cudaStream_t s) {
+  if (body == 1) return launch_warp(x, y0, x0, fy, fx, out, S, P, H, W, C / kVec, s);
+  const long long threads = S * (C / kVec);
+  const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
+  gather_bilinear_kernel<T, TO><<<grid, kThreads, 0, s>>>(x, y0, x0, fy, fx, out, S, P, H, W, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out).  S = B * P samples, image b of
-// sample s is s / P.  body 1 is the warp-chunk kernel (C / 8 a power of two up to
-// 32), body 0 the one-thread-per-(sample, 8 channels) kernel.  Launches on
-// `stream` and returns cudaGetLastError().
+// dtype (x) and out_dtype (out): 0 = float32, 1 = bfloat16; out is x's dtype
+// or, for bfloat16 x, float32.  S = B * P samples, image b of sample s is
+// s / P.  body 1 is the warp-chunk kernel (C / 8 a power of two up to 32),
+// body 0 the one-thread-per-(sample, 8 channels) kernel.  Launches on `stream`
+// and returns cudaGetLastError().
 int gather_bilinear_launch(const void* x, const void* y0, const void* x0, const void* fy,
                            const void* fx, void* out, long long S, int P, int H, int W,
-                           int C, int dtype, int body, void* stream) {
+                           int C, int dtype, int out_dtype, int body, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* yi = static_cast<const int*>(y0);
   const int* xi = static_cast<const int*>(x0);
   const float* fyf = static_cast<const float*>(fy);
   const float* fxf = static_cast<const float*>(fx);
-  if (body == 1) {
-    if (dtype == 0)
-      return launch_warp(static_cast<const float*>(x), yi, xi, fyf, fxf, static_cast<float*>(out),
-                         S, P, H, W, C / kVec, s);
-    return launch_warp(static_cast<const __nv_bfloat16*>(x), yi, xi, fyf, fxf,
-                       static_cast<__nv_bfloat16*>(out), S, P, H, W, C / kVec, s);
-  }
-  const long long threads = S * (C / kVec);
-  const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
-  if (dtype == 0) {
-    gather_bilinear_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), yi, xi, fyf, fxf, static_cast<float*>(out), S, P, H, W, C);
-  } else {
-    gather_bilinear_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), yi, xi, fyf, fxf,
-        static_cast<__nv_bfloat16*>(out), S, P, H, W, C);
-  }
-  return (int)cudaGetLastError();
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (dtype == 0 && out_dtype == 0)
+    return launch_typed(static_cast<const float*>(x), yi, xi, fyf, fxf, static_cast<float*>(out),
+                        S, P, H, W, C, body, s);
+  if (dtype == 1 && out_dtype == 1)
+    return launch_typed(xb, yi, xi, fyf, fxf, static_cast<__nv_bfloat16*>(out), S, P, H, W, C,
+                        body, s);
+  if (dtype == 1 && out_dtype == 0)
+    return launch_typed(xb, yi, xi, fyf, fxf, static_cast<float*>(out), S, P, H, W, C, body, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Reads `bytes` (a multiple of 16) at x `passes` times with the gather's grid;

@@ -16,6 +16,7 @@ package's space-to-depth stem computes the same function in a TPU layout.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence
 
@@ -63,6 +64,24 @@ def msra_init_(w: torch.Tensor, gen: torch.Generator) -> None:
                 math.sqrt(2.0 / fan_out))
 
 
+_frozen_statistics = False
+
+
+@contextlib.contextmanager
+def frozen_statistics(on: bool = True):
+    """Within the block (when `on`), training-mode BatchNorms normalise with
+    the batch statistics but leave their running statistics as they are:
+    the backward's recompute of a checkpointed segment (`--remat`) runs its
+    BatchNorms a second time, and the statistics blend once per step."""
+    global _frozen_statistics
+    prev = _frozen_statistics
+    _frozen_statistics = prev or on
+    try:
+        yield
+    finally:
+        _frozen_statistics = prev
+
+
 class FoldedBatchNorm(nn.Module):
     """BatchNorm over dim 1 applied as ONE multiply-add (side_tpu
     FoldedBatchNorm): a = scale * rsqrt(var + eps), b = bias - mean * a are
@@ -76,6 +95,7 @@ class FoldedBatchNorm(nn.Module):
     F.batch_norm is not used: it would blend the unbiased variance."""
 
     momentum = 0.9
+    channel_dim = 1
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -85,18 +105,25 @@ class FoldedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        if self.training:
-            xf = x.float()
-            dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    def statistics(self, x):
+        """(mean, var) to normalise with: the batch's in training mode
+        (blending the running statistics unless they are frozen), else the
+        running ones."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if not _frozen_statistics:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)
                 self.running_var.mul_(m).add_((1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
+        return mean, var
+
+    def forward(self, x):
+        mean, var = self.statistics(x)
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -104,6 +131,36 @@ class FoldedBatchNorm(nn.Module):
         if x.dtype == torch.float32:
             return x * a + b
         return (x.float() * a + b).to(x.dtype)
+
+
+class BatchNorm(FoldedBatchNorm):
+    """flax `nn.BatchNorm(dtype=float32)` over the LAST axis: the statistics
+    of FoldedBatchNorm, applied in f32 in flax's order, (x - mean) *
+    (scale * rsqrt(var + eps)) + bias, with an f32 result.  Used where the
+    JAX package has nn.BatchNorm rather than FoldedBatchNorm (the voxel
+    net, PointNetDepth, DeconvStage); NCHW inputs pass `channel_dim=1`."""
+
+    def __init__(self, channels: int, channel_dim: int = -1,
+                 eps: float = BN_EPS):
+        super().__init__(channels, eps)
+        self.channel_dim = channel_dim
+
+    def forward(self, x):
+        mean, var = self.statistics(x)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        shape = [1] * x.dim()
+        shape[self.channel_dim % x.dim()] = -1
+        return ((x.float() - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
+
+class Dense(nn.Linear):
+    """flax `nn.Dense(dtype=...)`: nn.Linear run in its input's dtype
+    (weights kept float32); weight (out, in) is the flax kernel
+    transposed."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class ConvBN(nn.Module):
@@ -357,17 +414,27 @@ class FeatureExtractor(nn.Module):
         return self.ida_up(y, 0, len(y))[-1]
 
 
+def lecun_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax lecun_normal (variance 1/fan_in), untruncated."""
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=gen) * w[0].numel() ** -0.5)
+
+
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
     """Seeded init following the JAX package's initialisers: conv and DCN
     kernels uniform with bound 1/sqrt(fan_in) (msra normal where a conv is
-    marked `msra`), conv biases zero; offset/mask convs, BN and BilinearUp
-    keep the values their constructors set (zero, identity, bilinear)."""
+    marked `msra`, lecun normal where it is marked `lecun` and for Dense
+    layers), conv and Dense biases zero; offset/mask convs, BN and
+    BilinearUp keep the values their constructors set (zero, identity,
+    bilinear)."""
     for m in module.modules():
         if isinstance(m, DeformBlock):
             conv_init_(m.kernel.permute(3, 2, 0, 1), gen)
-        elif isinstance(m, (Conv2d, Conv3d)):
+        elif isinstance(m, (Conv2d, Conv3d, Dense)):
             if getattr(m, "msra", False):
                 msra_init_(m.weight, gen)
+            elif getattr(m, "lecun", False) or isinstance(m, Dense):
+                lecun_init_(m.weight, gen)
             else:
                 conv_init_(m.weight, gen)
             if m.bias is not None:

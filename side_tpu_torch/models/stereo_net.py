@@ -5,7 +5,10 @@ reads left features through a deep 256-channel stack, every other head the
 channel-concatenated stereo features.  At inference the RoIs of the top
 `cv_topk` decoded slots feed the cost volume and the rest fall back to
 disparity depth; in training (`target=` GT boxes) the cost volume runs on
-every GT slot.
+every GT slot.  With `use_cost_volume=False` (`--not_cost_volume`) the
+network stops after the heads.  With `remat` (`--remat`) the feature
+extractor is a checkpointed segment in training: its activations are
+recomputed in the backward instead of kept (side_tpu's `nn.remat`).
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import decode as dec
 from .cost_volume import CostVolumeNet, build_cost_volume, proposal_shift
-from .dla import Conv2d, FeatureExtractor, FoldedBatchNorm, init_weights
+from .dla import (Conv2d, FeatureExtractor, FoldedBatchNorm,
+                  frozen_statistics, init_weights)
 
 HM_BIAS = -2.19
 
@@ -41,6 +46,38 @@ class Head(nn.Module):
         return getattr(self, f"Conv_{self.n_mid}")(x).float()
 
 
+def set_hm_bias(conv: nn.Module) -> None:
+    """The heatmap head's last conv starts at bias -2.19 (sigmoid 0.1)."""
+    nn.init.constant_(conv.bias, HM_BIAS)
+
+
+def nchw_input(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An NHWC image batch as an NCHW tensor in channels-last memory."""
+    return t.to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def stereo_features(module: nn.Module, left: torch.Tensor,
+                    right: torch.Tensor, remat: bool = False):
+    """Both views through `module` as ONE batch of 2B images: (f_left,
+    f_right, feats).  With `remat`, in training and under autograd, the pass
+    is a checkpointed segment; its recompute in the backward runs with
+    frozen BatchNorm statistics, so that they blend once per step."""
+    both = torch.cat([left, right], dim=0)
+    if remat and module.training and torch.is_grad_enabled():
+        calls = []
+
+        def run(x):
+            with frozen_statistics(bool(calls)):
+                calls.append(None)
+                return module(x)
+        feats = checkpoint(run, both, use_reentrant=False)
+    else:
+        feats = module(both)
+    B = left.shape[0]
+    return feats[:B], feats[B:], feats
+
+
 class StereoNet(nn.Module):
     """heads: name -> channels; topk: decoded RoI slots per image."""
 
@@ -49,13 +86,13 @@ class StereoNet(nn.Module):
     def __init__(self, heads: Dict[str, int], roi_size: int = 16,
                  topk: int = 100, down_ratio: int = 4, input_w: int = 1280,
                  wh_scale: float = 1.0, dtype: torch.dtype = torch.float32,
-                 cv_topk: int = 32, seed: int = 0):
+                 cv_topk: int = 32, remat: bool = False, seed: int = 0):
         super().__init__()
         self.heads = dict(heads)
         self.roi_size, self.topk, self.cv_topk = roi_size, topk, cv_topk
         self.down_ratio, self.input_w, self.wh_scale = (down_ratio, input_w,
                                                         wh_scale)
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.feature_extraction = FeatureExtractor(down_ratio=down_ratio)
         for name, ch in self.heads.items():
             deep = name in self.LEFT_ONLY
@@ -65,34 +102,32 @@ class StereoNet(nn.Module):
         self.depth_estimator = CostVolumeNet(32)
         init_weights(self, torch.Generator().manual_seed(seed))
         if "hm" in self.heads:
-            head = self.hm
-            nn.init.constant_(getattr(head, f"Conv_{head.n_mid}").bias,
-                              HM_BIAS)
+            set_hm_bias(getattr(self.hm, f"Conv_{self.hm.n_mid}"))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 target: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]] = None
-                ) -> Dict[str, torch.Tensor]:
+                                       torch.Tensor]] = None,
+                use_cost_volume: bool = True) -> Dict[str, torch.Tensor]:
         """batch: input / input_right (B, H, W, 3) normalised NHWC, fb (B,).
         target: GT (bbox, bbox_right, valid) of (B, K, 4), (B, K, 4), (B, K)
         at feature resolution, as ops/decode.boxes_from_targets gives them;
         None decodes the heads instead.  Returns NHWC float32 head maps plus
         depth (B, K, 1), depth_logits (B, kcv, D) and depth_bin (B, kcv, D),
-        where kcv = K with a target and cv_topk without."""
-        def nchw(t):
-            return t.to(self.dtype).permute(0, 3, 1, 2).contiguous(
-                memory_format=torch.channels_last)
-
-        left, right = nchw(batch["input"]), nchw(batch["input_right"])
+        where kcv = K with a target and cv_topk without; without the cost
+        volume only the head maps."""
+        left = nchw_input(batch["input"], self.dtype)
+        right = nchw_input(batch["input_right"], self.dtype)
         B = left.shape[0]
-        feats = self.feature_extraction(torch.cat([left, right], dim=0))
-        f_left, f_right = feats[:B], feats[B:]
+        f_left, f_right, feats = stereo_features(
+            self.feature_extraction, left, right, self.remat)
         f_stereo = torch.cat([f_left, f_right], dim=1)
 
         out: Dict[str, torch.Tensor] = {}
         for name in self.heads:
             src = f_left if name in self.LEFT_ONLY else f_stereo
             out[name] = getattr(self, name)(src).permute(0, 2, 3, 1)
+        if not use_cost_volume:
+            return out
 
         red = F.relu(self.feaReduce_bn(self.feaReduce(feats)))
         red = red.permute(0, 2, 3, 1)                      # NHWC

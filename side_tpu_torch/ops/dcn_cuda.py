@@ -25,6 +25,15 @@ in the block and writes d_x once in g's dtype (the model's window R = 1 at
 Cout 64), "tile" adds to an f32 d_x in device memory (exact mode, other
 windows, Cout 128 and 256).
 
+Under `torch.use_deterministic_algorithms` (`deterministic_mode()` sets it
+with cuDNN's and cuBLAS's own switches) K2 and K3 give the same bits every
+run: K2 takes its patch body at every width of the window R = 1, and K3's
+tensor-core route writes its partial sums to copies that the wrapper adds
+in a fixed order.  Where neither applies (the CUDA-core routes, K2 off the
+window) they raise as PyTorch's own operations do, or warn where PyTorch
+is set to warn only.  The forward body adds no atomics and is the same
+bits every run in either mode.
+
 Each source is compiled with nvcc into a shared library with a plain C
 interface at first use, under `side_tpu_torch/_build/` (git-ignored), and
 loaded with ctypes; `build_all()` compiles every source at once.  Nothing is
@@ -51,6 +60,8 @@ import os
 import shutil
 import subprocess
 import threading
+import warnings
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -150,7 +161,7 @@ FWD_LIB = CudaLibrary("dcn_fwd", {
     headers=("dcn_fwd_body.cuh", *_MMA_HEADERS))
 BWD_SIGNATURES = {
     "dcn_bwd_dx_launch": [_VP] * 5 + [_CI] * 11 + [_VP],
-    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 10 + [_VP]}
+    "dcn_bwd_dcoord_launch": [_VP] * 8 + [_CI] * 11 + [_VP]}
 BWD_LIB = CudaLibrary("dcn_bwd", BWD_SIGNATURES, "dcn_bwd_error_string",
                       headers=_MMA_HEADERS)
 OM_LIB = CudaLibrary("dcn_fwd_om", {
@@ -255,7 +266,8 @@ def _dx_tile_plan(P: int, C: int, Cout: int) -> dict:
             "smem_bytes": smem, "blocks_per_sm": _blocks_per_sm(smem)}
 
 
-def dx_plan(B: int, H: int, W: int, C: int, Cout: int, radius: int) -> dict:
+def dx_plan(B: int, H: int, W: int, C: int, Cout: int, radius: int,
+            deterministic: bool = False) -> dict:
     """Launch plan of the tensor-core K2 (csrc/dcn_bwd.cu), whose blocks
     each own 64 input channels and loop over the 9 taps.
 
@@ -269,8 +281,11 @@ def dx_plan(B: int, H: int, W: int, C: int, Cout: int, radius: int) -> dict:
     product over the halo costs more than the device-memory scatter it
     saves): a block owns 64 output pixels and adds to an f32 d_x in device
     memory (`patch_h` 0); where that leaves SMs without a block the nine
-    taps are split over `tap_splits` blocks."""
-    if radius != DX_PATCH_RADIUS or Cout != DX_PATCH_COUT:
+    taps are split over `tap_splits` blocks.  `deterministic` takes the
+    patch at every Cout of the window (4 rows at Cout 256, where 8 exceed a
+    block's shared memory): its sums have one order."""
+    if radius != DX_PATCH_RADIUS or (Cout != DX_PATCH_COUT
+                                     and not deterministic):
         return _dx_tile_plan(B * H * W, C, Cout)
     halo = radius + 1
     plans = []
@@ -289,6 +304,47 @@ def dx_plan(B: int, H: int, W: int, C: int, Cout: int, radius: int) -> dict:
             or tall["blocks"] < SM_COUNT <= short["blocks"]):
         return short
     return tall
+
+
+CUBLAS_WORKSPACE = ":4096:8"    # cuBLAS's setting for repeatable results
+
+
+@contextmanager
+def deterministic_mode():
+    """Within the block PyTorch's operations and these kernels give the same
+    bits every run: `torch.use_deterministic_algorithms` (warn only, for the
+    operations without a deterministic implementation whose result is
+    repeatable all the same: max_pool3d's backward over windows that do not
+    overlap adds one value to each element), cuDNN's deterministic
+    algorithms without autotuning, and cuBLAS's workspace setting where
+    none is set (read when cuBLAS first runs in the process).  The previous
+    settings come back afterwards."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+        torch.backends.cudnn.benchmark = prev[3]
+
+
+def _not_deterministic(what: str) -> None:
+    """PyTorch's rule for an operation with no deterministic
+    implementation under `torch.use_deterministic_algorithms`: raise, or
+    warn where it is set to warn only."""
+    msg = (f"{what} does not have a deterministic implementation, but "
+           "torch.use_deterministic_algorithms(True) is set")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg)
+    else:
+        raise RuntimeError(msg)
 
 
 def build_all(libraries: Optional[Sequence[CudaLibrary]] = None):
@@ -394,14 +450,19 @@ class DcnBackwardDx:
             raise ValueError(f"scatter must be None or 'tile', got {scatter!r}")
         B, H, W, Cout = g.shape
         lib = self.lib.load()
+        det = torch.are_deterministic_algorithms_enabled()
         route = "cuda_core" if cuda_core else dcn_route(g.dtype, C, Cout)
         patch_h = smem = 0
         splits = 1
         if route == "tensor":
             plan = dx_plan(B, H, W, C, Cout,
-                           -1 if scatter == "tile" else int(radius))
+                           -1 if scatter == "tile" else int(radius),
+                           deterministic=det)
             patch_h, smem = plan["patch_h"], plan["smem_bytes"]
             splits = plan["tap_splits"]
+        if det and not patch_h:
+            _not_deterministic(f"dcn_bwd_dx on its {route} route "
+                               f"(radius {radius}, Cout {Cout})")
         if patch_h:
             dx = torch.empty((B, H, W, C), dtype=g.dtype, device=g.device)
         else:
@@ -436,32 +497,46 @@ class DcnBackwardDcoord:
         timing only) runs the CUDA-core body whatever the shape.  On the
         tensor-core route d_offset and d_mask are summed with f32 atomics
         over the Cin/64 channel tiles where Cin > 64, as d_weight is on both
-        routes."""
+        routes; under `torch.use_deterministic_algorithms` the tensor-core
+        route writes each slice's and channel tile's partial sums to copies
+        of their own, summed here in a fixed order."""
         _check(x, offset, mask, weight, g=g)
         B, H, W, C = x.shape
         Cout = weight.shape[-1]
         lib = BWD_LIB.load()
+        det = torch.are_deterministic_algorithms_enabled()
         route = "cuda_core" if cuda_core else dcn_route(x.dtype, C, Cout)
         slices = smem = 0
+        copies = 1                      # of d_offset and d_mask
         new = torch.empty
         if route == "tensor":
             plan = dcoord_plan(B * H * W, C, Cout)
             slices, smem = plan["slices"], plan["smem_bytes"]
             if plan["combos"] > 9:      # more than one channel tile adds
                 new = torch.zeros
-        d_off = new((B, H, W, 9, 2), dtype=torch.float32, device=x.device)
-        d_mask = new((B, H, W, 9), dtype=torch.float32, device=x.device)
-        d_w = torch.zeros((3, 3, C, Cout), dtype=torch.float32,
-                          device=x.device)
+        elif det:
+            _not_deterministic("dcn_bwd_dcoord on its cuda_core route")
+        det = det and route == "tensor"
+        if det:
+            copies, new = C // 64, torch.empty
+        f32 = dict(dtype=torch.float32, device=x.device)
+        d_off = new((copies, B, H, W, 9, 2), **f32)
+        d_mask = new((copies, B, H, W, 9), **f32)
+        d_w = (torch.empty((slices, 3, 3, C, Cout), **f32) if det
+               else torch.zeros((1, 3, 3, C, Cout), **f32))
         err = lib.dcn_bwd_dcoord_launch(
             x.data_ptr(), g.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), d_off.data_ptr(), d_mask.data_ptr(),
             d_w.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
-            _ROUTE_CODE[route], slices, smem, _stream(x.device))
+            _ROUTE_CODE[route], slices, int(det), smem, _stream(x.device))
         BWD_LIB.check(err, "dcn_bwd_dcoord")
         self.launches += 1
         self.tensor_core_launches += route == "tensor"
-        return d_off, d_mask, d_w
+        if copies > 1:
+            d_off, d_mask = d_off.sum(0), d_mask.sum(0)
+        else:
+            d_off, d_mask = d_off[0], d_mask[0]
+        return d_off, d_mask, d_w.sum(0) if det else d_w[0]
 
 
 class DcnForwardOmKernel:

@@ -8,11 +8,17 @@ package's gather probe (tools/gather_microbench.py:111 `variant_E.kernel`):
         x[b, min(y0+dy, H-1), min(x0+dx, W-1), :] * w_dydx(fy, fx)
 
 accumulated in f32 in the corner order (0,0), (0,1), (1,0), (1,1) and stored
-in x's dtype.  `GATHER_BILINEAR(x, y0, x0, fy, fx)` launches the kernel on
-PyTorch's current stream for CUDA tensors, raises on anything it cannot take
-and counts its launches in `.launches`; CPU tensors take
-`gather_bilinear_plain`.  The library is built with nvcc at first use (see
-ops/dcn_cuda.py); nothing is built when this module is imported.
+in x's dtype, or in f32 with `out_dtype=torch.float32` (for bf16 x: the
+voxel depth variant's `grid_sample_feats`, models/voxel_net.py).
+`GATHER_BILINEAR(x, y0, x0, fy, fx)` launches the kernel on PyTorch's
+current stream for CUDA tensors, raises on anything it cannot take and
+counts its launches in `.launches`; CPU tensors take
+`gather_bilinear_plain`.  `GatherBilinearFunction` is the kernel with a
+gradient with respect to x: the corner-weighted scatter-add in PyTorch (the
+JAX package computes this function in XLA, so no TPU kernel has a backward
+to port).  The library is
+built with nvcc at first use (see ops/dcn_cuda.py); nothing is built when
+this module is imported.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from .dcn_cuda import CudaLibrary, _dtype_code, _stream
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 GATHER_LIB = CudaLibrary("gather_bilinear", {
-    "gather_bilinear_launch": [_VP] * 6 + [ctypes.c_longlong] + [_CI] * 6
+    "gather_bilinear_launch": [_VP] * 6 + [ctypes.c_longlong] + [_CI] * 7
     + [_VP],
     "gather_l2_read_launch": [_VP, ctypes.c_longlong, _CI, _VP, _VP]},
     "gather_error_string")
@@ -34,10 +40,10 @@ WARP_BODY_GROUPS = (1, 2, 4, 8, 16, 32)   # C / 8 the warp-chunk kernel takes
 
 def gather_bilinear_plain(x: torch.Tensor, y0: torch.Tensor,
                           x0: torch.Tensor, fy: torch.Tensor,
-                          fx: torch.Tensor) -> torch.Tensor:
+                          fx: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """The plain version of the kernel.  x (B, H, W, C); y0, x0 integer and
     fy, fx f32 of B*P elements (any shape), sample s in image s // P.
-    Returns (B*P, C) in x.dtype."""
+    Returns (B*P, C) in `out_dtype` (default x.dtype)."""
     B, H, W, C = x.shape
     y0 = y0.reshape(B, -1).long()
     x0 = x0.reshape(B, -1).long()
@@ -54,7 +60,43 @@ def gather_bilinear_plain(x: torch.Tensor, y0: torch.Tensor,
             v = torch.gather(flat, 1, idx).float()
             wt = (fy if dy else 1 - fy) * (fx if dx else 1 - fx)
             acc = acc + v * wt[..., None]
-    return acc.to(x.dtype).reshape(-1, C)
+    return acc.to(out_dtype or x.dtype).reshape(-1, C)
+
+
+class GatherBilinearFunction(torch.autograd.Function):
+    """`GATHER_BILINEAR` (any device: the kernel on CUDA tensors, the plain
+    version on CPU tensors) with a gradient with respect to x: g scattered
+    back to each sample's four corners with its weights, accumulated in f32
+    with `index_add_` and cast to x's dtype.  The coordinates get none."""
+
+    @staticmethod
+    def forward(ctx, x, y0, x0, fy, fx, out_dtype=None):
+        ctx.save_for_backward(y0, x0, fy, fx)
+        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+        return GATHER_BILINEAR(x, y0, x0, fy, fx, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        y0, x0, fy, fx = ctx.saved_tensors
+        B, H, W, C = ctx.shape
+        y0 = y0.reshape(B, -1).long()
+        x0 = x0.reshape(B, -1).long()
+        fy = fy.reshape(-1).float()
+        fx = fx.reshape(-1).float()
+        base = (torch.arange(B, device=g.device) * (H * W))[:, None]
+        g = g.float()
+        d = torch.zeros((B * H * W, C), dtype=torch.float32, device=g.device)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yi = torch.clamp(y0 + dy, max=H - 1)
+                xi = torch.clamp(x0 + dx, max=W - 1)
+                wt = (fy if dy else 1 - fy) * (fx if dx else 1 - fx)
+                d.index_add_(0, (base + yi * W + xi).reshape(-1),
+                             g * wt[:, None])
+        return (d.reshape(B, H, W, C).to(ctx.dtype), None, None, None, None,
+                None)
 
 
 def gather_body(C: int) -> str:
@@ -71,20 +113,25 @@ class GatherBilinearKernel:
         self.launches = 0
 
     def __call__(self, x: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
-                 fy: torch.Tensor, fx: torch.Tensor,
+                 fy: torch.Tensor, fx: torch.Tensor, out_dtype=None,
                  per_thread: bool = False) -> torch.Tensor:
         """x (B,H,W,C) bf16|f32 with C a multiple of 8; y0, x0 int32 in
         [0, H-1] / [0, W-1] and fy, fx f32, each of B*P elements, contiguous.
-        Returns (B*P, C) in x.dtype.  The kernel follows `gather_body`;
+        Returns (B*P, C) in `out_dtype`: x.dtype (the default) or, for bf16
+        x, float32.  The kernel follows `gather_body`;
         `per_thread=True` (tests and timing only) runs the one-thread-per-
         (sample, 8 channels) kernel, the earlier design, at any width."""
         if x.device.type != "cuda":
-            return gather_bilinear_plain(x, y0, x0, fy, fx)
+            return gather_bilinear_plain(x, y0, x0, fy, fx, out_dtype)
         if x.dim() != 4:
             raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
         B, H, W, C = x.shape
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+        out_dtype = out_dtype or x.dtype
+        if out_dtype not in (x.dtype, torch.float32):
+            raise TypeError(f"out_dtype must be x's dtype or float32, got "
+                            f"{out_dtype}")
         if C == 0 or C % 8:
             raise ValueError(f"C must be a positive multiple of 8, got {C}")
         S = y0.numel()
@@ -109,11 +156,12 @@ class GatherBilinearKernel:
                              "an image, 2**29 pixels and 2**31 samples")
         body = "thread" if per_thread else gather_body(C)
         lib = GATHER_LIB.load()
-        out = torch.empty((S, C), dtype=x.dtype, device=x.device)
+        out = torch.empty((S, C), dtype=out_dtype, device=x.device)
         err = lib.gather_bilinear_launch(
             x.data_ptr(), y0.data_ptr(), x0.data_ptr(), fy.data_ptr(),
             fx.data_ptr(), out.data_ptr(), S, S // B, H, W, C,
-            _dtype_code(x), int(body == "warp"), _stream(x.device))
+            _dtype_code(x), _dtype_code(out), int(body == "warp"),
+            _stream(x.device))
         GATHER_LIB.check(err, "gather_bilinear")
         self.launches += 1
         return out

@@ -11,6 +11,10 @@ pass of the network and one tail over the frame axis.  With
 SIDE_TPU_TORCH_HOST_TAIL=1 `dispatch` stops after the decode and `finish`
 runs the host tail (`postprocess/post_process.py:process_frame`).
 
+Every arch of the factory that takes the stereo batch runs here; with
+`--not_cost_volume` the network stops after the heads and the info rows
+carry no depth column, so the tail takes the disparity depth.
+
 The Detector runs on `cuda` unless the caller passes `device="cpu"`; with
 no CUDA device and no explicit device it raises.
 """
@@ -27,7 +31,7 @@ import torch
 from ..config import Config
 from ..data import geometry as G
 from ..data.dataset import warp_affine
-from ..models.factory import create_model
+from ..models.factory import check_stereo_model, create_model
 from ..ops import decode as dec
 from ..ops import deform_conv as dc
 from ..postprocess.device_tail import (bucket_results, run_tail,
@@ -71,6 +75,7 @@ class Detector:
         if cfg.reference_exact and os.environ.get("SIDE_TPU_TORCH_DCN") is None:
             dc.set_dcn_mode("exact")
         model = create_model(cfg, seed=seed)
+        check_stereo_model(model, cfg)
         if cfg.load_model:
             weights.load_npz(model, cfg.load_model)
         self.model = model.to(self.device).eval()
@@ -113,20 +118,22 @@ class Detector:
         batch = dict(batch)
         batch["input"] = self._normalise(batch["input"])
         batch["input_right"] = self._normalise(batch["input_right"])
-        return self.model(batch)
+        return self.model(batch, use_cost_volume=self.cfg.cost_volume)
 
     @torch.inference_mode()
     def decode(self, out: Dict[str, torch.Tensor]):
         """Sigmoid + ddd_decode of the network's output: (dets, dets_r,
-        info (B, K, 10))."""
+        info (B, K, 10)), or info (B, K, 9) without the depth path."""
         hm = torch.sigmoid(out["hm"])
         dets, dets_r, info = dec.ddd_decode(
             hm, out["kept_type"], out["dim"], out["orien"], out["wh"],
             out["reg"], grid_size=self.cfg.grid, K=self.cfg.K)
-        return dets, dets_r, torch.cat([info, out["depth"]], dim=2)
+        if self.cfg.cost_volume:
+            info = torch.cat([info, out["depth"]], dim=2)
+        return dets, dets_r, info
 
     def process(self, batch: Dict[str, torch.Tensor]):
-        """Network + decode on the device: (dets, dets_r, info (B, K, 10))."""
+        """Network + decode on the device: (dets, dets_r, info)."""
         return self.decode(self.network(batch))
 
     def merge_outputs(self, results: Dict[int, np.ndarray]):
@@ -140,7 +147,9 @@ class Detector:
 
     # --------------------------------------------------- pipelined stages
     def load_and_pre(self, images_or_paths, calib):
-        """Host stages: image load + affine pre-process."""
+        """Host stages: image load + affine pre-process.  The batch carries
+        the images, fb, the projections P2 / P3 and the output-resolution
+        affines (what the voxel variant projects its voxels with)."""
         t0 = time.time()
         if isinstance(images_or_paths, (list, tuple)) and \
                 isinstance(images_or_paths[0], str):
@@ -159,6 +168,10 @@ class Detector:
             "fb": torch.tensor([p2[0, 3] - p3[0, 3]], dtype=torch.float32,
                                device=dev),
         }
+        for key, a in (("p2", p2), ("p3", p3), ("trans", meta["trans"]),
+                       ("trans_inv", meta["trans_inv"])):
+            batch[key] = torch.tensor(np.asarray(a, np.float32)[None],
+                                      device=dev)
         t_pre = time.time()
         return {"batch": batch, "meta": meta, "image": image,
                 "image_right": image_right, "t0": t0,

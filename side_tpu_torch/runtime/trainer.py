@@ -9,7 +9,11 @@ kernels) and applies Adam.  The optimizer is optax.adam's: b1 0.9, b2
 0.1 at every `lr_step` epoch (boundaries `lr_step * steps_per_epoch`,
 clamped to 2^31 - 1) and evaluated at the number of updates made before the
 current one.  With `--uncert` the 7 Kendall log-variances `loss_weight`
-start at -1 and are trained by the same Adam.
+start at -1 and are trained by the same Adam.  Every arch of the factory
+that takes the stereo batch trains here; `--not_cost_volume` drops the
+depth path and its loss part.  The voxel variant's dropout draws from a
+generator seeded from (cfg.seed, step), as the JAX trainer folds the step
+into its dropout key.
 
 The Trainer runs on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit device it raises.
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models.factory import check_stereo_model
 from ..ops.decode import boxes_from_targets
 from ..ops.losses import stereo_loss
 from .. import weights
@@ -112,6 +117,7 @@ class Adam:
 class Trainer:
     def __init__(self, cfg: Config, model: torch.nn.Module,
                  steps_per_epoch: int, device=None):
+        check_stereo_model(model, cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -150,11 +156,23 @@ class Trainer:
         batch = normalize_images(batch, self.mean, self.std)
         target = boxes_from_targets(batch["ind_float"], batch["wh"],
                                     batch["reg"], cfg.output_w, cfg.wh_scale)
-        out = self.model(batch, target=target)
+        extra = {}
+        if getattr(self.model, "takes_generator", False) \
+                and self.model.training:
+            extra["generator"] = self.dropout_generator()
+        out = self.model(batch, target=target,
+                         use_cost_volume=cfg.cost_volume, **extra)
         return stereo_loss(out, batch, self.loss_weight, cfg.grid,
                            cfg.uncert, cfg.cost_volume,
                            depth_aux_weight=cfg.depth_aux_weight,
                            mse_loss=cfg.mse_loss)
+
+    def dropout_generator(self) -> torch.Generator:
+        """The generator of this step's dropout masks, seeded from
+        (cfg.seed, step)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.cfg.seed << 32) + self.step)
+        return gen
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:

@@ -149,14 +149,15 @@ def step_stages(tr, batch) -> dict:
             "optimizer": t_opt}
 
 
-def flagship_trainer(n_batches: int):
+def flagship_trainer(n_batches: int, **overrides):
     """The flagship Trainer on the card (Config(): 384x1280, bf16, max_objs
     50, roi_size 16; batch 4 stereo pairs) on He-scaled seeded weights with
-    perturbed offsets, and `n_batches` host batches of rendered scenes."""
+    perturbed offsets, and `n_batches` host batches of rendered scenes.
+    `overrides` change the Config (another arch, depth variant or flag)."""
     from .data.synthetic import scene_batch
     from .models.factory import create_model
     from .runtime.trainer import Trainer
-    cfg = Config(batch_size=4)
+    cfg = Config(batch_size=4, **overrides)
     model = create_model(cfg, seed=21)
     he_scale(model)
     perturb_offsets(model, seed=22)

@@ -23,15 +23,19 @@ Prints one JSON line per variant with the JAX tool's keys, a `timing` line,
 and writes `summary.json` (non-finite values as null).  `--check 16` (batch
 4, 240 epochs: the defaults) or `--check 2` (batch 2, 160 epochs) asserts
 that protocol's floors, the JAX tests' own, and exits 1 if one fails.
-`--compute_dtype` (default float32, the JAX protocol's), `--device cpu` and
-`--input_h/--input_w` (default 128x384, the protocol's size) beside the JAX
-tool's flags.  Runs on the GPU unless `--device cpu` is given; writes
+`--compute_dtype` (default float32, the JAX protocol's), `--device cpu`,
+`--input_h/--input_w` (default 128x384, the protocol's size) and
+`--deterministic` (train and detect under `dcn_cuda.deterministic_mode`:
+the same trained weights, bit for bit, every run on one card and software
+stack; `weights_digest` names them) beside the JAX tool's flags.  Runs on the GPU unless `--device cpu` is given; writes
 under `--out` (default exp/acc16).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import math
 import os
@@ -83,7 +87,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                    run_align=True, verbose=False, n_scenes=2,
                    batch_size=2, inject=None, ckpt=None,
                    compute_dtype="float32", device=None, radius=1,
-                   _capture=None):
+                   deterministic=False, _capture=None):
     """Train on the fixture and close the full accuracy loop; returns
     (aps, per-object errors).
 
@@ -93,10 +97,12 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     run of the same protocol; training is skipped.  `_capture` receives the
     results, the paths, wall times and the DCN kernels' launches during
     training and during detection.  `radius`: the DCN's offset bound, 1 as
-    in the JAX protocol; -1 runs the exact (unbounded) DCN."""
+    in the JAX protocol; -1 runs the exact (unbounded) DCN.
+    `deterministic`: train and detect under `dcn_cuda.deterministic_mode`."""
     from ..data.loader import Loader
     from ..data.synthetic import FixtureKitti, fixture_frames, fixture_scenes
     from ..models.factory import create_model
+    from ..ops.dcn_cuda import deterministic_mode
     from ..runtime.detector import Detector
     from ..runtime.trainer import Trainer
     from .. import val
@@ -118,7 +124,9 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     launches = capture.setdefault("launches", {})
 
     with (dc.dcn_mode("windowed", radius) if radius >= 0
-          else dc.dcn_mode("exact")):
+          else dc.dcn_mode("exact")), \
+            (deterministic_mode() if deterministic
+             else contextlib.nullcontext()):
         if ckpt:
             path = ckpt
         else:
@@ -145,6 +153,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                           final_loss={k: float(v) for k, v in stats.items()})
             path = os.path.join(save_dir, "model_last.npz")
             trainer.save(path, epochs)
+            timing["weights_digest"] = weights_digest(path)
             del trainer
 
         # -------- inference on the (identical) val split, full tail -------
@@ -172,6 +181,19 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                    save_dir=save_dir, checkpoint=path)
     return save_and_eval(results, results_raw, base, save_dir,
                          inject=inject, verbose=verbose)
+
+
+def weights_digest(path) -> str:
+    """sha256 over a checkpoint's arrays (names, dtypes, shapes and bytes,
+    in name order): equal for the same weights, whatever the file's zip
+    metadata."""
+    h = hashlib.sha256()
+    with np.load(path, allow_pickle=False) as z:
+        for name in sorted(z.files):
+            a = np.ascontiguousarray(z[name])
+            h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def run_overfit_variants(tmp, variants=("clean", "ry_flip", "depth_sign",
@@ -446,6 +468,8 @@ def main(argv=None) -> int:
                     help="cpu for the plain CPU path (default: the GPU)")
     ap.add_argument("--input_h", type=int, default=128)
     ap.add_argument("--input_w", type=int, default=384)
+    ap.add_argument("--deterministic", action="store_true",
+                    help="repeatable kernels and PyTorch algorithms")
     ap.add_argument("--check", type=int, choices=sorted(FLOORS),
                     help="assert the floors of the 16- or 2-scene protocol")
     args = ap.parse_args(argv)
@@ -458,12 +482,13 @@ def main(argv=None) -> int:
         batch_size=args.batch, ckpt=args.ckpt, verbose=args.verbose,
         input_hw=(args.input_h, args.input_w),
         compute_dtype=args.compute_dtype, device=args.device,
-        _capture=capture)
+        deterministic=args.deterministic, _capture=capture)
     runs = summarize(out)
     for summary in runs.values():
         print(json.dumps(summary), flush=True)
     timing = dict(capture["timing"], total_s=time.perf_counter() - t0,
                   compute_dtype=args.compute_dtype,
+                  deterministic=args.deterministic,
                   launches=capture["launches"])
     print("timing:", json.dumps(timing), flush=True)
     with open(os.path.join(args.out, "summary.json"), "w") as f:

@@ -165,11 +165,11 @@ def main(argv=None) -> int:
     batches = ([int(v) for v in eval_batches.split(",")] if eval_batches
                else [int(eval_batch or 1)])
     cfg = Config.cli(argv)
-    if fused:
-        dc.set_dcn_fused(True)
 
     from .runtime.detector import Detector
     detector = Detector(cfg, device=device)
+    if fused:       # after the Detector: a run that cannot start leaves it
+        dc.set_dcn_fused(True)
     os.makedirs(cfg.save_dir, exist_ok=True)
     if n_scenes is not None:
         from .data.synthetic import val_scenes

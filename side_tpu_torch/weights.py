@@ -5,9 +5,11 @@ a `state_dict` of the port: the flax path becomes the module path, and the
 layouts change as follows:
     conv kernel       HWIO  -> OIHW
     3D conv kernel    DHWIO -> OIDHW
+    Dense kernel      (in, out) -> Linear weight (out, in)
     BilinearUp kernel (k, k, 1, C) -> (C, 1, k, k), unflipped
     BN scale / bias / mean / var -> weight / bias / running_mean / running_var
-    DCN kernel (3, 3, Cin, Cout) and bias: kept
+    DCN kernel (3, 3, Cin, Cout) and bias: kept (DLA's proj_N / node_N,
+        the resdcn family's DeconvStage_N/DeformBlock_0)
     offset_mask kernel (3, 3, Cin, 27) -> (27, Cin, 3, 3), channel order kept
 `to_flax` is its inverse, so that a checkpoint the port writes loads in
 the JAX package.  `load_npz` reads the JAX checkpoint format
@@ -34,7 +36,7 @@ import torch.nn as nn
 
 from .ops import deform_conv as dc
 
-_DCN_BLOCK = re.compile(r"(^|/)(proj|node)_\d+$")
+_DCN_BLOCK = re.compile(r"(^|/)(proj|node|DeformBlock)_\d+$")
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -65,7 +67,7 @@ def _param_entry(path: str, a: np.ndarray):
     if leaf == "kernel":
         if _DCN_BLOCK.search(module):
             return f"{key}.kernel", a
-        if a.ndim not in (4, 5):
+        if a.ndim not in (2, 4, 5):
             raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
         return f"{key}.weight", param_from_flax(f"{key}.weight", a)
     if leaf == "scale":
@@ -94,6 +96,8 @@ def from_flax(params: Mapping, batch_stats: Mapping
 def param_to_flax(key: str, a: np.ndarray) -> np.ndarray:
     """A port parameter (state_dict key, array) in the JAX layout."""
     if key.endswith(".weight"):
+        if a.ndim == 2:                      # Linear (out, in) -> (in, out)
+            return a.T
         if a.ndim == 4:                      # OIHW -> HWIO
             return a.transpose(2, 3, 1, 0)
         if a.ndim == 5:                      # OIDHW -> DHWIO
@@ -104,6 +108,8 @@ def param_to_flax(key: str, a: np.ndarray) -> np.ndarray:
 def param_from_flax(key: str, a: np.ndarray) -> np.ndarray:
     """Inverse of `param_to_flax`."""
     if key.endswith(".weight"):
+        if a.ndim == 2:                      # (in, out) -> Linear (out, in)
+            return a.T
         if a.ndim == 4:                      # HWIO -> OIHW (also BilinearUp)
             return a.transpose(3, 2, 0, 1)
         if a.ndim == 5:                      # DHWIO -> OIDHW

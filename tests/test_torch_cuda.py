@@ -26,7 +26,9 @@ the same bits every run) and adds to device memory where it says
 alone.  Outputs that sum with f32 atomics (d_weight on both routes; d_offset
 and d_mask on the tensor-core route, over Cin/64 partial sums) may differ
 between two runs by the order of the additions: bounded below at 1e-5 of each
-output's max.  K5 has two bodies (ops/gather_cuda.py:gather_body), both held
+output's max; under `deterministic_mode` K2 takes its patch body at every
+width of the window and K3 sums partial copies in a fixed order, the same
+bits on a second call.  K5 has two bodies (ops/gather_cuda.py:gather_body), both held
 to the same tolerance.
 """
 
@@ -38,7 +40,9 @@ from side_tpu_torch.config import Config
 from side_tpu_torch.ops import deform_conv as tdc
 from side_tpu_torch.ops.dcn_cuda import (DCN_BWD_DCOORD, DCN_BWD_DX, DCN_FWD,
                                          DCN_FWD_OM, dcn_route, dx_plan)
+from side_tpu_torch.models.resnet_dcn import deform_shapes
 from side_tpu_torch.ops.gather_cuda import (GATHER_BILINEAR,
+                                            GatherBilinearFunction,
                                             gather_bilinear_plain)
 from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
 
@@ -423,6 +427,64 @@ def test_tensor_core_k2_matches_plain_autograd_on_card(card, name, radius,
         assert torch.equal(got, DCN_BWD_DX(g, off, mask, w, radius))
 
 
+@pytest.mark.parametrize("offsets", ["random", "far_outside"])
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_deterministic_k2_k3_match_plain_and_repeat_on_card(card, name,
+                                                            offsets):
+    """Under deterministic_mode (R = 1): K2 on its patch body at every
+    width and K3 with its partial sums in copies against autograd of the
+    plain version (the same tolerances, d_x also over the border and patch
+    seams), two calls equal bit for bit, still on the tensor-core route."""
+    from side_tpu_torch.ops.dcn_cuda import deterministic_mode
+    x, off, mask, w, b, g = _mma_case(card, name, seed=36)
+    if offsets == "far_outside":
+        off = off * 8.0
+    B, H, W, C = x.shape
+    plan = dx_plan(B, H, W, C, w.shape[-1], 1, deterministic=True)
+    assert plan["scatter"] == "patch"
+    want = _grads(lambda *a: tdc.deform_conv_plain(*a, 1),
+                  x, off, mask, w, b, g)
+    before = (DCN_BWD_DX.tensor_core_launches,
+              DCN_BWD_DCOORD.tensor_core_launches)
+    with deterministic_mode():
+        runs = [(DCN_BWD_DX(g, off, mask, w, 1),
+                 *DCN_BWD_DCOORD(x, g, off, mask, w, 1)) for _ in range(2)]
+    assert (DCN_BWD_DX.tensor_core_launches,
+            DCN_BWD_DCOORD.tensor_core_launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+    seam = _seam_mask(H, W, plan["patch_h"], card)
+    for got, ref in zip(runs[0], want[:4]):
+        ref = ref.reshape(got.shape).float()
+        diff = (got.float() - ref).abs()
+        assert float(diff.max()) / float(ref.abs().max()) <= BWD_TOL[
+            torch.bfloat16]
+    diff = (runs[0][0].float() - want[0].float()).abs()[:, seam]
+    assert float(diff.max()) / float(
+        want[0].float()[:, seam].abs().max()) <= BWD_TOL[torch.bfloat16]
+
+
+def test_deterministic_mode_refuses_the_atomic_routes_on_card(card):
+    """With torch.use_deterministic_algorithms(True) and no warn-only, K2
+    off the window and both kernels on their CUDA-core routes raise, as
+    PyTorch's own operations without a deterministic implementation do;
+    the windowed tensor-core route launches."""
+    x, off, mask, w, b, g = _mma_case(card, "wide", seed=38)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="deterministic"):
+            DCN_BWD_DX(g, off, mask, w, -1)
+        with pytest.raises(RuntimeError, match="deterministic"):
+            DCN_BWD_DX(g, off, mask, w, 1, cuda_core=True)
+        with pytest.raises(RuntimeError, match="deterministic"):
+            DCN_BWD_DCOORD(x, g, off, mask, w, 1, cuda_core=True)
+        assert bool(torch.isfinite(DCN_BWD_DX(g, off, mask, w, 1)).all())
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
 def test_k2_route_counter_follows_dtype_and_widths(card):
     for dtype, kw, tensor in ((torch.float32, MMA_CASES["ragged"], 0),
                               (torch.bfloat16, dict(C=40, Cout=72), 0),
@@ -701,16 +763,39 @@ def test_kernels_at_the_protocol_shapes_on_card(card, shape, dtype):
     """The forward kernel, K2 and K3 through DcnFunction against the plain
     version and its autograd at B = 8, R = 1, offsets far outside the
     window (as a trained model's are); bf16 takes the tensor-core route."""
+    _check_kernels_at(card, shape, dtype, 8, 8.0)
+
+
+RESDCN_SHAPES = [(s, b) for s in deform_shapes(18) for b in (2, 8)] + [
+    (deform_shapes(50)[0], 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,batch", RESDCN_SHAPES, ids=[
+    "x".join(map(str, s)) + f"_B{b}" for s, b in RESDCN_SHAPES])
+def test_kernels_at_the_resdcn_shapes_on_card(card, shape, batch, dtype):
+    """The forward kernel, K2 and K3 at the DeformBlock shapes of resdcn_18
+    at 384x1280 (Cin 512/256/128 at 1/32, 1/16, 1/8; B = 2 serves a pair,
+    B = 8 trains four) and resdcn_50's first (Cin 2048), offsets beyond
+    +-1."""
+    _check_kernels_at(card, shape, dtype, batch, 1.0)
+
+
+def _check_kernels_at(card, shape, dtype, batch, off_scale):
+    """Forward, K2 and K3 through DcnFunction against the plain version and
+    its autograd at one shape (offsets in +-1.5 * off_scale)."""
     cin, h, w_, cout = shape
-    gen = torch.Generator(card).manual_seed(sum(shape))
-    x = torch.randn(8, h, w_, cin, device=card, generator=gen).to(dtype)
-    off = (torch.rand(8, h, w_, 9, 2, device=card, generator=gen) * 3.0
-           - 1.5) * 8.0
-    mask = torch.rand(8, h, w_, 9, device=card, generator=gen)
+    gen = torch.Generator(card).manual_seed(sum(shape) + batch)
+    x = torch.randn(batch, h, w_, cin, device=card, generator=gen).to(dtype)
+    off = (torch.rand(batch, h, w_, 9, 2, device=card, generator=gen) * 3.0
+           - 1.5) * off_scale
+    mask = torch.rand(batch, h, w_, 9, device=card, generator=gen)
     w = torch.randn(3, 3, cin, cout, device=card, generator=gen) / (
         9 * cin) ** 0.5
     b = torch.randn(cout, device=card, generator=gen) * 0.1
-    g = torch.randn(8, h, w_, cout, device=card, generator=gen).to(dtype)
+    g = torch.randn(batch, h, w_, cout, device=card,
+                    generator=gen).to(dtype)
     before = [k.tensor_core_launches
               for k in (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)]
     with tdc.dcn_mode("windowed", 1):
@@ -761,3 +846,75 @@ def test_box_solver_moves_under_inference_mode_on_card(card):
         got = BS.solve_x_y_theta(consts(card), z.to(card)).cpu()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert abs(float(got[0, 2]) - 3.9159) < 1e-3
+
+
+# ---------------------------------------------------- the voxel variant's K5
+def test_gather_autograd_backward_matches_plain_on_card(card):
+    """GatherBilinearFunction (K5 forward, the scatter-add backward) on an
+    f32 map against autograd of the plain gather: 1e-5 of the gradient's
+    largest value; a bf16 map with the f32 output the voxel path takes
+    launches the kernel and matches the plain version to 1e-6."""
+    args = _gather_case(card, torch.float32, seed=21, C=64, P=3001)
+    x = args[0].clone().requires_grad_(True)
+    out = GatherBilinearFunction.apply(x, *args[1:], torch.float32)
+    g = torch.randn(out.shape, device=card,
+                    generator=torch.Generator(card).manual_seed(22))
+    out.backward(g)
+    xp = args[0].clone().requires_grad_(True)
+    gather_bilinear_plain(xp, *args[1:]).backward(g)
+    assert float((x.grad - xp.grad).abs().max() / xp.grad.abs().max()) \
+        <= 1e-5
+    xb = args[0].to(torch.bfloat16)
+    before = GATHER_BILINEAR.launches
+    got = GATHER_BILINEAR(xb, *args[1:], out_dtype=torch.float32)
+    assert GATHER_BILINEAR.launches == before + 1
+    want = gather_bilinear_plain(xb, *args[1:], torch.float32)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+def test_voxel_net_on_card_launches_k5_twice(card, monkeypatch):
+    """The voxel variant's forward on the card runs K5 once a view (and
+    never the plain gather) and equals the same network on the CPU (f32,
+    TF32 off): head maps and depths 1e-3 of their largest value."""
+    from side_tpu_torch.models import voxel_net as tvn
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.synthetic import interior_init
+    cfg = Config(input_h=128, input_w=256, compute_dtype="float32", K=3,
+                 depth_variant="voxel")
+    cpu = create_model(cfg, seed=3).eval()
+    interior_init(cpu, seed=4)
+    gpu = create_model(cfg, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(card).eval()
+    gen = torch.Generator().manual_seed(5)
+    f, W = 200.0, 256
+    p2 = torch.tensor([[[f, 0, W / 2, 0.0], [0, f, 64.0, 0.0],
+                        [0, 0, 1, 0]]])
+    p3 = p2.clone()
+    p3[0, 0, 3] = -f * 0.5
+    batch = {"input": torch.randn(1, 128, 256, 3, generator=gen),
+             "input_right": torch.randn(1, 128, 256, 3, generator=gen),
+             "fb": torch.tensor([f * 0.5]), "p2": p2, "p3": p3,
+             "trans": torch.tensor([[[0.25, 0, 0], [0, 0.25, 0]]]),
+             "trans_inv": torch.tensor([[[4.0, 0, 0], [0, 4.0, 0]]])}
+    # GT boxes at feature resolution, 8-12 m away (the decode order of
+    # random heads is float noise between devices)
+    bbox = torch.tensor([[[10.0, 10, 16, 18], [28, 12, 40, 20],
+                          [44, 14, 50, 22]]])
+    disp = torch.tensor([[2.5, 2.0, 3.0]])[..., None] * torch.tensor(
+        [1.0, 0, 1, 0])
+    target = (bbox, bbox - disp, torch.tensor([[True, True, False]]))
+    with torch.inference_mode():
+        want = cpu(batch, target=target)
+
+        def refuse(*a, **k):
+            raise AssertionError("the plain gather ran on the card")
+        monkeypatch.setattr(tvn, "gather_bilinear_plain", refuse)
+        before = GATHER_BILINEAR.launches
+        got = gpu({k: v.to(card) for k, v in batch.items()},
+                  target=tuple(t.to(card) for t in target))
+    assert GATHER_BILINEAR.launches == before + 2
+    for name, w in want.items():
+        err = float((got[name].cpu() - w).abs().max() / w.abs().max())
+        assert err <= 1e-3, (name, err)

@@ -76,9 +76,12 @@ def test_demo_debug_overlays_exit_with_a_message(capsys):
 
 def test_create_model_raises_on_remat():
     """--remat rematerialises the backbone in side_tpu; the port's factory
-    refuses it rather than run the full footprint without a word."""
+    once refused it and now builds the flagship with its feature extractor
+    checkpointed in training (tests/test_torch_flags.py holds the step):
+    it raises nothing, and the model carries the flag."""
     from side_tpu_torch.models.factory import create_model
     cfg = Config.cli(["--remat", "--input_h", "128", "--input_w", "256"])
     assert cfg.remat
-    with pytest.raises(NotImplementedError, match="--remat"):
-        create_model(cfg)
+    assert create_model(cfg).remat is True
+    assert create_model(Config.cli(["--input_h", "128", "--input_w",
+                                    "256"])).remat is False

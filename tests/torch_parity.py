@@ -102,3 +102,133 @@ def spread_detector(cfg, seed: int):
     with torch.no_grad():
         det.model.hm.Conv_1.weight.mul_(50.0)
     return det
+
+
+# ------------------------------------------------ gradients, offsets, dropout
+def window_interior_offsets(tree, rng: np.random.RandomState) -> None:
+    """In a JAX parameter tree (numpy leaves, changed in place), give every
+    offset/mask conv a tiny kernel and dy/dx biases in (0.3, 0.7): each DCN
+    then samples inside its window and away from the integer kinks of the
+    bilinear derivative, where the windowed (R = 1) and the exact function
+    are the same smooth function (channel order per tap [dy, dx, logit])."""
+    for name, sub in tree.items():
+        if not isinstance(sub, dict):
+            continue
+        if name == "offset_mask":
+            sub["kernel"] = sub["kernel"] * 0.02
+            bias = sub["bias"].copy()
+            bias[0::3] = rng.uniform(0.3, 0.7, 9)
+            bias[1::3] = rng.uniform(0.3, 0.7, 9)
+            sub["bias"] = bias
+        else:
+            window_interior_offsets(sub, rng)
+
+
+def gradient_errors(model: torch.nn.Module, grads, dead=()) -> dict:
+    """Per parameter tensor of the port model: max |port - JAX| over max
+    |JAX| (`grads`: the JAX gradient tree, numpy leaves), floored at 1e-4
+    of the model's largest gradient.  The `dead` parameters (biases that
+    feed a batch-statistics BatchNorm: their gradient is 0 up to float
+    residue) must instead lie below 1e-5 of it in both packages."""
+    from side_tpu_torch import weights
+    flat = weights._flatten(grads)
+    top = max(np.abs(v).max() for v in flat.values())
+    errs = {}
+    for key, p in model.named_parameters():
+        ref = flat.pop(weights.flax_param_path(key, p.dim()))
+        got = weights.param_to_flax(key, np.zeros(p.shape, np.float32)
+                                    if p.grad is None else p.grad.numpy())
+        if key in dead:
+            assert max(np.abs(got).max(), np.abs(ref).max()) <= 1e-5 * top
+            continue
+        errs[key] = float(np.abs(got - ref).max() /
+                          max(np.abs(ref).max(), 1e-4 * top))
+    assert not flat, f"JAX gradients the port lacks: {sorted(flat)[:5]}"
+    return errs
+
+
+def dropout_interceptor(store: list):
+    """A flax method interceptor that appends each nn.Dropout call's keep
+    mask (where its output is not zero) to `store` through a host callback
+    (works under jit; call jax.effects_barrier() before reading)."""
+    from flax import linen as nn
+
+    def interceptor(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if isinstance(context.module, nn.Dropout):
+            jax.debug.callback(lambda k: store.append(np.asarray(k)),
+                               (out != 0) | (args[0] == 0))
+        return out
+    return interceptor
+
+
+# ----------------------------------------------------- the voxel variant's
+VOXEL_H, VOXEL_W, VOXEL_K = 64, 128, 3
+
+
+def voxel_geometry(batch: int):
+    """Calibration of tests/test_voxel_net.py (f = 200 px, baseline 0.5 m)
+    and the stride-4 affines: p2, p3, trans, trans_inv, fb per image."""
+    f = 200.0
+    p2 = np.array([[f, 0, VOXEL_W / 2, 0.0], [0, f, VOXEL_H / 2, 0.0],
+                   [0, 0, 1, 0]], np.float32)
+    p3 = p2.copy()
+    p3[0, 3] = -f * 0.5
+    return {"p2": np.tile(p2, (batch, 1, 1)),
+            "p3": np.tile(p3, (batch, 1, 1)),
+            "trans": np.tile(np.array([[0.25, 0, 0], [0, 0.25, 0]],
+                                      np.float32), (batch, 1, 1)),
+            "trans_inv": np.tile(np.array([[4.0, 0, 0], [0, 4.0, 0]],
+                                          np.float32), (batch, 1, 1)),
+            "fb": np.full((batch,), f * 0.5, np.float32)}
+
+
+def voxel_boxes(rng: np.random.RandomState, batch: int):
+    """Feature-res (bbox, bbox_right) of VOXEL_K objects per image whose
+    disparity puts them 6-14 m away, so that most of their voxels project
+    into the 16x32 map."""
+    K = VOXEL_K
+    cx = rng.uniform(8, 24, (batch, K))
+    cy = rng.uniform(5, 11, (batch, K))
+    disp4 = 100.0 / rng.uniform(6, 14, (batch, K)) / 4
+    half = rng.uniform(1, 3, (batch, K, 2))
+    bbox = np.stack([cx - half[..., 0], cy - half[..., 1],
+                     cx + half[..., 0], cy + half[..., 1]], -1)
+    bbox_r = bbox - np.stack([disp4, 0 * disp4, disp4, 0 * disp4], -1)
+    return bbox.astype(np.float32), bbox_r.astype(np.float32)
+
+
+def voxel_train_batch(seed: int, batch: int = 2):
+    """A training batch (uint8 images, targets, geometry) whose GT boxes are
+    `voxel_boxes`; the second image has all VOXEL_K slots valid, the first
+    two."""
+    rng = np.random.RandomState(seed)
+    K = VOXEL_K
+    Ho, Wo = VOXEL_H // 4, VOXEL_W // 4
+    bbox, bbox_r = voxel_boxes(rng, batch)
+    cx = (bbox[..., 0] + bbox[..., 2]) / 2
+    cy = (bbox[..., 1] + bbox[..., 3]) / 2
+    cx_r = (bbox_r[..., 0] + bbox_r[..., 2]) / 2
+    xs, ys = np.floor(cx), np.floor(cy)
+    ind = (ys * Wo + xs).astype(np.int64)
+    mask = np.ones((batch, K), np.uint8)
+    mask[0, K - 1] = 0
+    reg = np.stack([cx - xs, cx_r - xs, cy - ys], -1).astype(np.float32)
+    wh = np.stack([bbox[..., 2] - bbox[..., 0],
+                   bbox_r[..., 2] - bbox_r[..., 0],
+                   bbox[..., 3] - bbox[..., 1]], -1).astype(np.float32)
+    return {
+        "input": rng.randint(0, 256, (batch, VOXEL_H, VOXEL_W, 3)
+                             ).astype(np.uint8),
+        "input_right": rng.randint(0, 256, (batch, VOXEL_H, VOXEL_W, 3)
+                                   ).astype(np.uint8),
+        "hm": (rng.rand(batch, 3, Ho, Wo) * 0.5).astype(np.float32),
+        "ind": ind, "ind_float": ind.astype(np.float32),
+        "rot_mask": mask, "wh": wh * mask[..., None], "reg": reg,
+        "dim": rng.rand(batch, K, 3).astype(np.float32) + 1.0,
+        "orien": rng.rand(batch, K, 2).astype(np.float32),
+        "depth": ((rng.rand(batch, K, 1) * 8 + 6) * mask[..., None]).astype(
+            np.float32),
+        "kept": (rng.rand(batch, K, 6) * 5).astype(np.float32),
+        **voxel_geometry(batch),
+    }
