@@ -130,6 +130,30 @@ Phases, each of which must pass:
      without `--remat` from the same weights and batch: loss parts and
      running statistics to one bf16 ulp, the statistics blended once, the
      peak memory with --remat the lower.
+ 13. data-parallel training (side_tpu_torch/parallel/mesh.py): 2 ranks on
+     cuda:0 over gloo (NCCL refuses two ranks on one GPU; a file store in
+     a temporary directory), each the flagship Trainer at full width
+     (384x1280, bf16, max_objs 50, roi_size 16; the well-conditioned
+     weights of phase 7, `interior_init`) on its 2 pairs of each global
+     batch of 4 rendered pairs, 3 steps under deterministic_mode, against
+     one process on the joined batches: (a) the parameter and
+     running-statistics digests equal on both ranks after every step, (b)
+     step 1's loss parts relative and running statistics over each
+     tensor's largest value to 1e-2, or to twice the one process's own
+     step 1 move when its pairs are permuted (3 orders, same run) where
+     that is larger, (c) the forward kernel, K2 and K3 16 times a step on
+     each rank, all on the tensor-core route; (d) a world-1 nccl group on
+     cuda:0: one step with the collectives active, loss parts to 1e-6 of
+     the step without a mesh; (e) with two or more cards, 2 nccl ranks on
+     cuda:0 and cuda:1 held as in (a)-(c), else "not run"; (f) printed,
+     no bound: at phase 6's He-scaled weights, bf16 and f32 (TF32 off in
+     every process of the phase), eval and training mode, the loss parts
+     of 2 ranks, of one process running the 4 pairs as two 2-pair
+     forwards (in training mode at the 4 pairs' BatchNorm statistics) and
+     of one process on the pairs permuted, each against one process on
+     the 4 pairs.  Per rank the step ms and the
+     share of steps 2-3 spent in all-reduce calls (timed between device
+     fences): the two ranks share one card, so this is no scaling figure.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -142,6 +166,7 @@ CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1764,6 +1789,427 @@ def phase_model_zoo() -> dict:
     return out
 
 
+DP_STEPS = 3
+# (b): step 1 of 2 ranks against one process, bf16: loss parts and running
+# statistics to DP_TOL, or to twice the one process's own move under a
+# permutation of its pairs where that is larger (the largest over
+# DP_PERMUTATIONS, measured in the same run).  A bf16 forward at full
+# width moves its smallest loss parts (orien, off, depth: ~1e-1 to 3) by
+# 1e-2 to 2.4e-2 when only the order of its sums changes (PERF.md §6)
+DP_TOL = 1e-2
+DP_WORLD1_TOL = 1e-6  # (d): a world-1 nccl mesh against no mesh
+DP_KERNELS = ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord")
+DP_PERMUTATIONS = ([2, 3, 0, 1], [1, 0, 3, 2], [3, 2, 1, 0])
+# (a)-(e) run the flagship at the well-conditioned point of phase 7
+# (interior_init), bf16.  At phase 6's He-scaled weights 2 ranks land far
+# from one process, in eval mode too, where no BatchNorm collective runs,
+# while a permutation of the pairs moves the one process much less: what
+# differs is the per-call numerics of a 2-pair batch against a 4-pair
+# one, and (f) prints it beside the same split made in one process
+DP_WEIGHTS = "interior"
+DP_DTYPE = "bfloat16"
+
+
+def _dp_trainer(weights: str, dtype: str, mesh=None):
+    """The flagship Trainer at full width (Config(batch_size=4): 384x1280,
+    max_objs 50, roi_size 16) at `weights`, "interior" (interior_init) or
+    "he" (He-scaled, offset convs perturbed: phase 6's), on the mesh's
+    device (cuda without one)."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.models.factory import create_model
+    from side_tpu_torch.runtime.synthetic import (he_scale, interior_init,
+                                                  perturb_offsets)
+    from side_tpu_torch.runtime.trainer import Trainer
+    cfg = Config(batch_size=4, compute_dtype=dtype)
+    model = create_model(cfg, seed=21)
+    if weights == "he":
+        he_scale(model)
+        perturb_offsets(model, seed=22)
+    else:
+        interior_init(model, seed=32)
+    return Trainer(cfg, model, steps_per_epoch=100, mesh=mesh,
+                   device=None if mesh is not None else "cuda")
+
+
+def _dp_batches(n: int) -> list:
+    """`n` global batches of 4 rendered pairs (max_objs 50), seeded."""
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.data.synthetic import scene_batch
+    cfg = Config(batch_size=4)
+    rng = np.random.RandomState(20)
+    return [scene_batch(cfg, rng, cfg.batch_size, cfg.max_objs)
+            for _ in range(n)]
+
+
+def _loss_err(got: dict, want: dict) -> float:
+    """The largest relative loss-part error."""
+    return max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+
+
+def _dp_errors(got: dict, want: dict) -> list:
+    """[largest relative loss-part error, largest running-statistic error
+    over its tensor's largest value]."""
+    stat = max(float((got["running"][k] - v).abs().max() /
+                     v.abs().max().clamp(min=1e-30))
+               for k, v in want["running"].items())
+    return [_loss_err(got["losses"], want["losses"]), stat]
+
+
+class _StatisticsTape:
+    """Within `record()` every training-mode BatchNorm's (mean, var) is
+    kept in call order; within `replay()` each forward gets them back in
+    that order in place of its own batch's."""
+
+    def __init__(self):
+        from side_tpu_torch.models import dla
+        self.cls, self.real = dla.FoldedBatchNorm, \
+            dla.FoldedBatchNorm.statistics
+        self.tape, self.pos = [], None
+
+    def _statistics(self, bn, x):
+        if self.pos is None:
+            out = self.real(bn, x)
+            if bn.training:
+                self.tape.append(out)
+            return out
+        if not bn.training:
+            return self.real(bn, x)
+        self.pos += 1
+        return self.tape[self.pos - 1]
+
+    @contextlib.contextmanager
+    def _patched(self, pos):
+        self.pos = pos
+        self.cls.statistics = lambda bn, x: self._statistics(bn, x)
+        try:
+            yield self
+        finally:
+            self.cls.statistics = self.real
+            self.pos = None
+
+    def record(self):
+        self.tape = []
+        return self._patched(None)
+
+    def replay(self):
+        return self._patched(0)
+
+
+def _forward_losses(tr, batch, mesh=None) -> dict:
+    """The loss parts of a forward in the model's current mode (under
+    `mesh` the global ones of the rank's share)."""
+    from side_tpu_torch.parallel.mesh import data_parallel
+    with torch.no_grad(), data_parallel(mesh):
+        _, stats = tr.loss(batch)
+    return {k: float(v) for k, v in stats.items()}
+
+
+def _split_losses(tr, batch, tape=None) -> dict:
+    """The loss parts of the whole batch from outputs that the network
+    computed two pairs at a time, in one process: the forwards of 2 ranks
+    without their collectives.  In training mode each BatchNorm takes the
+    statistics that `tape` recorded on the whole batch."""
+    from side_tpu_torch.ops.decode import boxes_from_targets
+    from side_tpu_torch.ops.losses import stereo_loss
+    from side_tpu_torch.runtime.trainer import normalize_images
+    cfg = tr.cfg
+    with torch.no_grad():
+        b = normalize_images(batch, tr.mean, tr.std)
+        target = boxes_from_targets(b["ind_float"], b["wh"], b["reg"],
+                                    cfg.output_w, cfg.wh_scale)
+        outs = []
+        for half in (slice(0, 2), slice(2, 4)):
+            with (tape.replay() if tape is not None
+                  else contextlib.nullcontext()):
+                outs.append(tr.model({k: v[half] for k, v in b.items()},
+                                     target=tuple(t[half] for t in target),
+                                     use_cost_volume=cfg.cost_volume))
+        out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        _, stats = stereo_loss(out, b, tr.loss_weight, cfg.grid, cfg.uncert,
+                               cfg.cost_volume,
+                               depth_aux_weight=cfg.depth_aux_weight,
+                               mse_loss=cfg.mse_loss)
+    return {k: float(v) for k, v in stats.items()}
+
+
+def _he_witness(batch, mesh=None) -> dict:
+    """(f) at He-scaled weights, bf16 and f32, eval and training mode,
+    under deterministic_mode and without TF32: the loss parts of one
+    forward on the whole batch (under `mesh`: of the rank's share), and
+    without a mesh also of the batch's pairs permuted and of the 2-pair
+    forwards of `_split_losses`."""
+    import gc
+    from side_tpu_torch.ops.dcn_cuda import deterministic_mode
+    from side_tpu_torch.parallel.mesh import Mesh, shard_batch
+    out = {}
+    swapped = {k: v[DP_PERMUTATIONS[0]] for k, v in batch.items()}
+    with deterministic_mode():
+        for dtype in ("bfloat16", "float32"):
+            tr = _dp_trainer("he", dtype, mesh)
+            b = tr.to_device(shard_batch(batch, mesh or Mesh()))
+            for mode in ("eval", "train"):   # eval first: train blends
+                tr.model.train(mode == "train")
+                if mesh is not None:
+                    out[dtype, mode] = _forward_losses(tr, b, mesh)
+                    continue
+                tape = _StatisticsTape()
+                with tape.record():
+                    want = _forward_losses(tr, b)
+                out[dtype, mode] = {
+                    "whole": want,
+                    "permuted": _forward_losses(tr, tr.to_device(swapped)),
+                    "split": _split_losses(tr, b, tape if mode == "train"
+                                           else None)}
+            del tr, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _CollectiveClock:
+    """Wraps torch.distributed.all_reduce: counts the calls and adds up
+    their time between device fences (the host waits for a gloo collective
+    on CUDA tensors in any case)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.real = dist, dist.all_reduce
+        self.calls, self.seconds = 0, 0.0
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        self.dist.all_reduce = self
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.real
+
+
+def _dp_steps(tr, batches, mesh) -> list:
+    """DP_STEPS train steps of `tr` on its slices of `batches` under
+    deterministic_mode: per step the host ms, collective calls and ms,
+    loss parts, the DCN kernels' launches (set to 0 just before the step,
+    read just after) and the digests of the parameters and running
+    statistics; step 1's running statistics themselves."""
+    from side_tpu_torch.ops.dcn_cuda import KERNELS, deterministic_mode
+    from side_tpu_torch.parallel.mesh import shard_batch
+    out = []
+    with deterministic_mode():
+        for i, batch in enumerate(batches[:DP_STEPS]):
+            b = tr.to_device(shard_batch(batch, mesh))
+            reset_counts(KERNELS)
+            with _CollectiveClock() as clock:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats = tr.train_step(b)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            row = {"ms": ms, "collectives": clock.calls,
+                   "collective_ms": clock.seconds * 1e3,
+                   "losses": {k: float(v) for k, v in stats.items()},
+                   "launches": _counts(KERNELS),
+                   "param_digest": _digest(tr.params),
+                   "running_digest": _digest(_batch_stats(tr.model))}
+            if i == 0:
+                row["running"] = {k: v.cpu() for k, v in
+                                  _batch_stats(tr.model).items()}
+            out.append(row)
+    return out
+
+
+def _dp_rank(rank: int, world: int, backend: str, store: str, batches,
+             out_dir: str, witness: bool) -> None:
+    """One rank of phase 13: the flagship Trainer at full width on its
+    share of each global batch (and, with `witness`, the He-scaled
+    forwards of (f) on the first); gloo ranks share cuda:0, nccl rank r
+    runs on cuda:r.  Writes its rows to out_dir/rank<r>.pt."""
+    import gc
+    from side_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                              shutdown)
+    torch.backends.cuda.matmul.allow_tf32 = False   # as in the parent
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    init_distributed(f"file://{store}", world, rank, backend=backend)
+    try:
+        mesh = make_mesh(world, device)
+        out = {"steps": _dp_steps(_dp_trainer(DP_WEIGHTS, DP_DTYPE, mesh),
+                                  batches, mesh)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        if witness:
+            out["he"] = _he_witness(batches[0], mesh)
+    finally:
+        shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _run_ranks(backend: str, batches, tmp: str, witness: bool = False):
+    """The ranks' step rows, and rank 0's (f) readings with `witness`."""
+    import torch.multiprocessing as mp
+    world = 2
+    mp.spawn(_dp_rank, args=(world, backend, os.path.join(tmp, "store"),
+                             batches, tmp, witness), nprocs=world, join=True)
+    res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+           for r in range(world)]
+    return [r["steps"] for r in res], res[0].get("he")
+
+
+def _check_ranks(label: str, ranks: list, ref: list, floor: list) -> dict:
+    """(a) equal digests on the ranks after every step, (b) step 1 against
+    the one-process run, to DP_TOL or twice the permutation `floor`
+    ([loss parts, running statistics]), (c) 16 tensor-core launches of
+    each DCN kernel a step on every rank."""
+    for i in range(DP_STEPS):
+        for key in ("param_digest", "running_digest"):
+            check(len({r[i][key] for r in ranks}) == 1,
+                  f"{label}: step {i + 1}: {key} differs across ranks")
+        for r, rows in enumerate(ranks):
+            for name in DP_KERNELS:
+                n = rows[i]["launches"][name]
+                tc = rows[i]["launches"][f"{name}_tensor_core"]
+                check(n == 16 and tc == 16, f"{label}: rank {r} step "
+                      f"{i + 1}: {name} {n} launches, {tc} tensor-core")
+    got, want = ranks[0][0], ref[0]
+    loss_err, stat_err = _dp_errors(got, want)
+    res = {"loss_rel_err": loss_err, "running_rel_err": stat_err,
+           "step_ms": [[row["ms"] for row in rows] for rows in ranks],
+           "collective_ms": [[row["collective_ms"] for row in rows]
+                             for rows in ranks],
+           "collectives_per_step": ranks[0][-1]["collectives"],
+           "collective_share": [
+               sum(row["collective_ms"] for row in rows[1:]) /
+               sum(row["ms"] for row in rows[1:]) for rows in ranks],
+           "launches_per_rank": [
+               {name: sum(row["launches"][name] for row in rows)
+                for name in DP_KERNELS} for rows in ranks],
+           "losses_step1": {"ranks": got["losses"],
+                            "one_process": want["losses"]},
+           "bound": [max(DP_TOL, 2 * f) for f in floor]}
+    log(f"[data parallel] {label}: {json.dumps(res)}")
+    bound = res["bound"]
+    check(loss_err <= bound[0] and stat_err <= bound[1],
+          f"{label}: step 1 against one process: loss parts {loss_err}, "
+          f"running statistics {stat_err} (bounds {bound})")
+    return res
+
+
+def phase_data_parallel() -> dict:
+    """Phase 13: data-parallel training, 2 ranks on one card over gloo,
+    against one process on the joined batches; a world-1 nccl mesh against
+    no mesh; nccl over two cards where there are two; (f) the He-scaled
+    weights' split forward."""
+    import gc
+    import tempfile
+    from side_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                              shutdown)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = _dp_batches(DP_STEPS)
+    no_mesh = make_mesh(1, "cuda")
+    ref = _dp_steps(_dp_trainer(DP_WEIGHTS, DP_DTYPE), batches, no_mesh)
+    # the yardstick of (b): one process on the first batch with its pairs
+    # in other orders (the same function, its sums in other orders)
+    moves = [_dp_errors(_dp_steps(_dp_trainer(DP_WEIGHTS, DP_DTYPE),
+                                  [{k: v[order] for k, v in
+                                    batches[0].items()}], no_mesh)[0],
+                        ref[0]) for order in DP_PERMUTATIONS]
+    floor = [max(m[i] for m in moves) for i in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"one_process_step_ms": [row["ms"] for row in ref],
+           "permuted_pairs_step1": {"loss_rel_err": [m[0] for m in moves],
+                                    "running_rel_err": [m[1] for m in moves]}}
+    log(f"[data parallel] one process, step 1 with the pairs in the orders "
+        f"{DP_PERMUTATIONS} against in order: "
+        f"{json.dumps(out['permuted_pairs_step1'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, he_ranks = _run_ranks("gloo", batches, tmp, witness=True)
+        out["gloo_one_card"] = _check_ranks("2 gloo ranks on cuda:0",
+                                            ranks, ref, floor)
+
+    # (f) He-scaled weights: 2 ranks, and one process on the 4 pairs as
+    # two 2-pair forwards (no collective; in training mode at the whole
+    # batch's BatchNorm statistics) or with its pairs permuted, each
+    # against one process on the 4 pairs in order (printed, no bound)
+    he = _he_witness(batches[0])
+    out["he_scaled"] = {
+        f"{dtype} {mode}": {
+            "two_ranks": _loss_err(he_ranks[dtype, mode], one["whole"]),
+            "one_process_split": _loss_err(one["split"], one["whole"]),
+            "one_process_permuted": _loss_err(one["permuted"],
+                                              one["whole"])}
+        for (dtype, mode), one in he.items()}
+    log(f"[data parallel] (f) He-scaled weights, step 1 loss parts against "
+        f"one process on the 4 pairs in order: "
+        f"{json.dumps(out['he_scaled'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a world-1 nccl group: the collectives run and change nothing
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                         backend="nccl")
+        try:
+            mesh = make_mesh(1, "cuda:0")
+            check(mesh.active, "world-1 nccl mesh without a group")
+            world1 = _dp_steps(_dp_trainer(DP_WEIGHTS, DP_DTYPE, mesh),
+                               batches[:1], mesh)[0]
+        finally:
+            shutdown()
+    err = max(abs(world1["losses"][k] - v) / max(abs(v), 1e-6)
+              for k, v in ref[0]["losses"].items())
+    out["nccl_world1"] = {"loss_rel_err": err,
+                          "collectives": world1["collectives"],
+                          "step_ms": world1["ms"]}
+    log(f"[data parallel] world-1 nccl mesh vs no mesh: "
+        f"{json.dumps(out['nccl_world1'])}")
+    check(world1["collectives"] > 0, "world-1 mesh issued no collective")
+    check(err <= DP_WORLD1_TOL, f"world-1 nccl mesh: loss parts differ by "
+          f"{err} from the step without a mesh")
+
+    # (e) nccl across two cards
+    if torch.cuda.device_count() >= 2:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            out["nccl_two_cards"] = _check_ranks(
+                "2 nccl ranks on cuda:0 and cuda:1",
+                _run_ranks("nccl", batches, tmp)[0], ref, floor)
+    else:
+        out["nccl_two_cards"] = "not run: 1 GPU visible"
+        log("[data parallel] nccl over two cards: not run (1 GPU visible)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    g = out["gloo_one_card"]
+    log(f"[data parallel] per-rank step ms {json.dumps(g['step_ms'])}, "
+        f"collective share (steps 2-{DP_STEPS}) "
+        f"{json.dumps(g['collective_share'])}; both ranks share one card, "
+        f"so this is no scaling figure; one process on the joined batches "
+        f"{json.dumps(out['one_process_step_ms'])} ms; phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def _shape(row) -> tuple:
     return (row["cin"], row["h"], row["w"], row["cout"])
 
@@ -1809,6 +2255,7 @@ def main() -> int:
     validation = phase_validation()
     trained = phase_trained_checkpoint()
     zoo = phase_model_zoo()
+    dp = phase_data_parallel()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -2027,6 +2474,14 @@ def main() -> int:
                 "per_shape_voxel": zoo["gather"]["rows"]})
             for key in ("earlier_ms", "l2_read_ms", "l2_bytes"):
                 entry.pop(key)
+    # phase 13: the launches of each rank of the data-parallel run
+    for entry in entries:
+        if entry["name"] in DP_KERNELS:
+            entry["launches_data_parallel"] = {
+                "per_rank": [counts[entry["name"]] for counts in
+                             dp["gloo_one_card"]["launches_per_rank"]],
+                "path": f"data-parallel training, 2 gloo ranks on one "
+                        f"card, {DP_STEPS} steps of 2 pairs a rank"}
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
@@ -2053,6 +2508,16 @@ def main() -> int:
         f"{json.dumps(zoo['forwards'])}; --remat peak "
         f"{json.dumps(zoo['remat']['peak_gib'])} GiB; phase "
         f"{zoo['phase_s']:.1f} s")
+    gloo, two = dp["gloo_one_card"], dp["nccl_two_cards"]
+    log(f"[summary] data parallel: per-rank step ms "
+        f"{json.dumps(gloo['step_ms'])}, collective share "
+        f"{json.dumps(gloo['collective_share'])} (2 ranks on one card: no "
+        f"scaling figure), step 1 vs one process "
+        f"{gloo['loss_rel_err']:.2e} / {gloo['running_rel_err']:.2e} "
+        f"(bounds {gloo['bound'][0]:.2e} / {gloo['bound'][1]:.2e}); "
+        f"world-1 nccl {dp['nccl_world1']['loss_rel_err']:.2e}; nccl two "
+        f"cards {two if isinstance(two, str) else two['step_ms']}; phase "
+        f"{dp['phase_s']:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

@@ -5,7 +5,10 @@ the batch, the invalid zero-box GT slots included, as the JAX package's do.
 
 Volumes are NDHWC at the public functions, as in the JAX package:
 `build_cost_volume` returns (N, D, R, R, 3C); `CostVolumeNet` takes it and
-runs its 3D convs on NCDHW internally.
+runs its 3D convs on NCDHW internally.  `build_cost_volume_gather` builds
+the same volume with one gather RoIAlign per depth bin (the reference's
+loop), and `HourglassVolume` is the encoder/decoder 3D CNN over a cost
+volume; the models of the factory use neither.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.roi_align import pool_interp_matrix
-from .dla import Conv2d, Conv3d, FoldedBatchNorm
+from ..ops.roi_align import pool_interp_matrix, roi_align
+from .dla import Conv2d, Conv3d, FoldedBatchNorm, init_weights
 
 DEPTH_MAX = 87.0
 
@@ -80,6 +83,82 @@ def build_cost_volume(feat_left: torch.Tensor, feat_right: torch.Tensor,
     pool_r = torch.einsum("bkdqw,bkpwc->bkdpqc", Wxr, yr)
     cost = torch.cat([pool_l, pool_r, pool_l - pool_r], dim=-1)
     return cost.reshape(B * K, D, R, R, cost.shape[-1]).to(feat_left.dtype)
+
+
+def build_cost_volume_gather(feat_left: torch.Tensor,
+                             feat_right: torch.Tensor,
+                             rois_left: torch.Tensor,
+                             rois_right: torch.Tensor,
+                             roi_size: int) -> torch.Tensor:
+    """`build_cost_volume` by gather RoIAlign, one depth bin at a time (a
+    working set of B*K RoIs instead of B*K*D).  Same arguments and result,
+    in feat_left's dtype."""
+    B, K, D, _ = rois_left.shape
+    batch_idx = torch.arange(B, device=feat_left.device).repeat_interleave(K)
+    bins = []
+    for d in range(D):
+        pl = roi_align(feat_left, rois_left[:, :, d].reshape(B * K, 4),
+                       batch_idx, roi_size, 1.0, 2)
+        pr = roi_align(feat_right, rois_right[:, :, d].reshape(B * K, 4),
+                       batch_idx, roi_size, 1.0, 2)
+        bins.append(torch.cat([pl, pr, pl - pr], dim=-1))
+    return torch.stack(bins, dim=1)                  # (B*K, D, R, R, 3C)
+
+
+class ConvTranspose3d(Conv3d):
+    """flax `nn.ConvTranspose(kernel 3, stride 2, padding="SAME")` (no
+    kernel flip, `transpose_kernel=False`): the input dilated by 2, padded
+    by (2, 1) per spatial axis and correlated with the kernel, so each
+    spatial size doubles.  The weight is stored as a Conv3d's (out, in, k,
+    k, k), the flax kernel (k, k, k, in, out) transposed like any 3D conv
+    kernel (weights.py); F.conv_transpose3d correlates with the flipped
+    (in, out) weight and pads (2, 2), so the weight is flipped and the last
+    output plane of each axis dropped."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, bias=False)
+        self.lecun = True                  # flax's default kernel init
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype).flip(2, 3, 4).transpose(0, 1)
+        y = F.conv_transpose3d(x, w, None, stride=2)
+        d, h, wd = (2 * n for n in x.shape[2:])
+        return y[:, :, :d, :h, :wd]
+
+
+class HourglassVolume(nn.Module):
+    """Encoder/decoder 3D CNN over a cost volume (side_tpu HourglassVolume):
+    two stride-2 conv stages, two transpose-conv stages and a skip from the
+    first stage.  (N, D, H, W, in_channels) NDHWC -> (N, D', H', W', 64)
+    in the input's dtype; D' = 2 * ceil(ceil(D / 2) / 2), which must equal
+    2 * ceil(D / 2) for the skip to fit (likewise H, W)."""
+
+    def __init__(self, in_channels: int, seed: int = 0):
+        super().__init__()
+        for name, cin, cout, stride in (("enc0", in_channels, 64, 1),
+                                        ("enc1", 64, 128, 2),
+                                        ("enc2", 128, 128, 2),
+                                        ("enc3", 128, 128, 1)):
+            conv = Conv3d(cin, cout, 3, stride, padding=1, bias=False)
+            conv.msra = True
+            setattr(self, name, conv)
+            setattr(self, f"{name}_bn", FoldedBatchNorm(cout))
+        self.dec0 = ConvTranspose3d(128, 128)
+        self.dec0_bn = FoldedBatchNorm(128)
+        self.dec1 = ConvTranspose3d(128, 64)
+        self.dec1_bn = FoldedBatchNorm(64)
+        init_weights(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, cost: torch.Tensor) -> torch.Tensor:
+        def stage(name, x):
+            return F.relu(getattr(self, f"{name}_bn")(getattr(self, name)(x)))
+
+        x = stage("enc0", cost.permute(0, 4, 1, 2, 3))            # NCDHW
+        cost0 = stage("enc1", x)
+        x = stage("enc3", stage("enc2", cost0))
+        x = self.dec0_bn(self.dec0(x)) + cost0
+        x = self.dec1_bn(self.dec1(x))
+        return x.permute(0, 2, 3, 4, 1)
 
 
 class ConvBN3D(nn.Module):

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_block_om
+from ..parallel.mesh import active_mesh, all_reduce_sum
 
 BN_EPS = 1e-5
 
@@ -92,7 +93,14 @@ class FoldedBatchNorm(nn.Module):
     over every axis but the channel one, the variance biased and clipped at
     0, max(E[x^2] - mean^2, 0), and the gradient flows through both; the
     running statistics blend as 0.9 * old + 0.1 * batch (flax momentum 0.9).
-    F.batch_norm is not used: it would blend the unbiased variance."""
+    F.batch_norm is not used: it would blend the unbiased variance.
+
+    Within `parallel.mesh.data_parallel` the batch is the global one: the
+    ranks' per-channel E[x] and E[x^2] (2C values) are summed in one
+    all-reduce, with the gradient flowing through, and divided by the world
+    size (sync-BN; torch.nn.SyncBatchNorm would blend the unbiased
+    variance); every rank blends the same running statistics.  Without a
+    mesh no collective runs and nothing else changes."""
 
     momentum = 0.9
     channel_dim = 1
@@ -114,7 +122,15 @@ class FoldedBatchNorm(nn.Module):
         xf = x.float()
         dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
         mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        square = (xf * xf).mean(dims)
+        mesh = active_mesh()
+        if mesh is not None:
+            # the ranks hold equal shards (shard_batch), so the global
+            # means are the ranks' local means summed over the world size
+            C = mean.shape[0]
+            both = all_reduce_sum(torch.cat([mean, square]), mesh) / mesh.world
+            mean, square = both[:C], both[C:]
+        var = torch.clamp(square - mean * mean, min=0.0)
         if not _frozen_statistics:
             with torch.no_grad():
                 m = self.momentum

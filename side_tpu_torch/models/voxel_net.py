@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..ops import decode as dec
 from ..ops.gather_cuda import GatherBilinearFunction, gather_bilinear_plain
+from ..parallel.mesh import active_mesh
 from .dla import (BatchNorm, Conv2d, Dense, FeatureExtractor, init_weights)
 from .stereo_net import Head, nchw_input, set_hm_bias, stereo_features
 
@@ -194,8 +195,15 @@ class PointNetDepth(nn.Module):
         x = F.relu(self.fc_bn1(self._dense("fc1", x)))
         x = self._dense("fc2", x)
         if self.training:
-            keep = dropout_keep_mask(x.shape, DROPOUT_RATE, generator,
-                                     x.device)
+            # under a mesh the mask is drawn at the global batch's shape
+            # and each rank takes its rows: the ranks together apply the
+            # one-process run's mask
+            mesh = active_mesh()
+            world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+            n = x.shape[0]
+            keep = dropout_keep_mask((n * world,) + tuple(x.shape[1:]),
+                                     DROPOUT_RATE, generator,
+                                     x.device)[rank * n:(rank + 1) * n]
             x = torch.where(keep, x / (1.0 - DROPOUT_RATE),
                             torch.zeros((), dtype=x.dtype, device=x.device))
         x = F.relu(self.fc_bn2(x))

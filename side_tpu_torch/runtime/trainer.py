@@ -1,5 +1,5 @@
-"""Training engine: Adam with the uncertainty-weighted stereo loss (port of
-side_tpu/runtime/trainer.py, one device).
+"""Training engine: data-parallel Adam with the uncertainty-weighted stereo
+loss (port of side_tpu/runtime/trainer.py).
 
 One step normalises the uint8 images on the device, feeds the GT RoIs to
 the cost volume (`boxes_from_targets`), computes the 7-part `stereo_loss`,
@@ -15,8 +15,17 @@ depth path and its loss part.  The voxel variant's dropout draws from a
 generator seeded from (cfg.seed, step), as the JAX trainer folds the step
 into its dropout key.
 
-The Trainer runs on `cuda` unless the caller passes `device="cpu"`; with no
-CUDA device and no explicit device it raises.
+With a `mesh` (parallel/mesh.py) of several ranks, every rank holds the
+same weights (broadcast from rank 0 at the start) and its slice of the
+global batch.  The forward and backward run within `data_parallel(mesh)`:
+BatchNorm statistics and loss normalisers are over the global batch, as
+under the JAX package's SPMD partitioning.  After the backward every
+gradient, `loss_weight`'s included, is summed over the ranks in one
+all-reduce of a flat f32 buffer, and every rank takes the same Adam step.
+Rank 0 alone writes checkpoints; validation runs whole on every rank.
+
+The Trainer runs on `cuda` (or the mesh's device) unless the caller passes
+`device="cpu"`; with no CUDA device and no explicit device it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..config import Config
 from ..models.factory import check_stereo_model
 from ..ops.decode import boxes_from_targets
 from ..ops.losses import stereo_loss
+from ..parallel.mesh import Mesh, all_reduce_, data_parallel, replicate
 from .. import weights
 from . import checkpoint as ckpt
 from .detector import resolve_device
@@ -116,11 +126,16 @@ class Adam:
 
 class Trainer:
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 steps_per_epoch: int, device=None):
+                 steps_per_epoch: int, device=None,
+                 mesh: Optional[Mesh] = None):
         check_stereo_model(model, cfg)
         self.cfg = cfg
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(device=self.device)
         self.model = model.to(self.device)
+        replicate(self.model, self.mesh)
         self.steps_per_epoch = max(1, steps_per_epoch)
         self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
                                  device=self.device)
@@ -174,17 +189,41 @@ class Trainer:
         gen.manual_seed((self.cfg.seed << 32) + self.step)
         return gen
 
+    def gradients(self, batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Forward, loss and backward in the model's current mode, leaving
+        every parameter's .grad (summed over the mesh's ranks); returns the
+        loss parts (global ones under a mesh), detached."""
+        for p in self.params.values():
+            p.grad = None
+        with data_parallel(self.mesh):
+            total, stats = self.loss(batch)
+            total.backward()
+        if self.mesh.active:
+            self.all_reduce_gradients()
+        return {k: v.detach() for k, v in stats.items()}
+
+    def all_reduce_gradients(self) -> None:
+        """Every gradient summed over the ranks: one all-reduce of one flat
+        f32 buffer, which the .grad tensors then view."""
+        ps = list(self.params.values())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1).float()
+                          for p in ps])
+        all_reduce_(flat, self.mesh)
+        offset = 0
+        for p in ps:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         """Forward in training mode (batch statistics), backward, Adam."""
         self.model.train()
-        for p in self.params.values():
-            p.grad = None
-        total, stats = self.loss(batch)
-        total.backward()
+        stats = self.gradients(batch)
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in stats.items()}
+        return stats
 
     @torch.no_grad()
     def val_step(self, batch: Dict[str, torch.Tensor]
@@ -214,7 +253,8 @@ class Trainer:
             batch_time.update(time.time() - end)
             end = time.time()
 
-            if cfg.print_iter > 0 and it % cfg.print_iter == 0:
+            if cfg.print_iter > 0 and it % cfg.print_iter == 0 and \
+                    self.mesh.rank == 0:
                 msg = (f"{cfg.task}/{cfg.exp_id} {phase} "
                        f"[{epoch}][{it}/{num_iters}]")
                 for name in meters:
@@ -253,6 +293,10 @@ class Trainer:
                 [np.asarray(opt.sched_count, np.int32)])
 
     def save(self, path: str, epoch: int) -> None:
+        """Write the checkpoint (rank 0 alone: the ranks hold the same
+        state)."""
+        if self.mesh.rank != 0:
+            return
         params, batch_stats = weights.to_flax(self.model.state_dict())
         opt_flat = {f"leaf_{i}": a for i, a in enumerate(self.opt_leaves())}
         lw = (self.loss_weight.detach().cpu().numpy() if self.cfg.uncert

@@ -918,3 +918,26 @@ def test_voxel_net_on_card_launches_k5_twice(card, monkeypatch):
     for name, w in want.items():
         err = float((got[name].cpu() - w).abs().max() / w.abs().max())
         assert err <= 1e-3, (name, err)
+
+
+def test_synced_folded_batchnorm_two_gloo_ranks_on_card(card, tmp_path):
+    """Two gloo ranks on cuda:0 (tests/torch_dp.py: NCCL refuses two ranks
+    on one GPU) each run a training-mode FoldedBatchNorm forward and
+    backward on half of the batch, synced; against one module on the joined
+    batch on the card, f32: output, d_x, d_weight and d_bias (summed over
+    the ranks) and running statistics to 1e-6 relative."""
+    import torch_dp
+    got = [r["folded1"] for r in torch_dp.spawn(
+        torch_dp.bn_job, 2, str(tmp_path), (("folded", 1),), "cuda")]
+    bn, x, g = torch_dp.bn_case("folded", 1)
+    want = torch_dp.bn_run(bn.to(card), torch.from_numpy(x).to(card),
+                           torch.from_numpy(g).to(card))
+    for key in ("y", "dx"):
+        assert torch_dp.rel_err(torch.cat([r[key] for r in got]),
+                                want[key]) <= 1e-6, key
+    for key in ("dweight", "dbias"):
+        assert torch_dp.rel_err(got[0][key] + got[1][key],
+                                want[key]) <= 1e-6, key
+    for key in ("running_mean", "running_var"):
+        assert torch.equal(got[0][key], got[1][key]), key
+        assert torch_dp.rel_err(got[0][key], want[key]) <= 1e-6, key

@@ -32,7 +32,8 @@ print(len(names))
 
 def _python_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "test_torch_cuda.py"]
+                                         ROOT / "tests" / "test_torch_cuda.py",
+                                         ROOT / "tests" / "torch_dp.py"]
 
 
 def test_every_module_imports_without_jax_or_side_tpu():
@@ -41,7 +42,7 @@ def test_every_module_imports_without_jax_or_side_tpu():
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 46, proc.stdout
+    assert n_modules >= 49, proc.stdout
 
 
 @pytest.mark.parametrize("path", _python_files(),
@@ -64,12 +65,12 @@ NEW_MODULES = ("val", "postprocess.post_process", "runtime.evaluator",
                "ops.gather_cuda", "tools.gather_microbench",
                "tools.acceptance_16", "tools.acceptance_rate",
                "models.voxel_net", "models.resnet_dcn", "models.dla_seg",
-               "models.legacy")
+               "models.legacy", "parallel.mesh", "ops.psroi_pool")
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_validation_modules_are_walked(name):
-    """The modules of the validation slice are files of the package, so the
+    """The modules of the later slices are files of the package, so the
     two checks above cover them."""
     path = PKG / (name.replace(".", "/") + ".py")
     assert path in _python_files()
