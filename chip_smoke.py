@@ -154,6 +154,26 @@ Phases, each of which must pass:
      the 4 pairs.  Per rank the step ms and the
      share of steps 2-3 spent in all-reduce calls (timed between device
      fences): the two ranks share one card, so this is no scaling figure.
+ 14. exact mode, the offset audit and the clamp-finetune recipe: (a) the
+     forward kernel, K2 and K3 in exact mode (R=-1) against the plain exact
+     version and its autograd at the 7 DeformBlock shapes of the 128x384
+     protocol, B=4 (the recipe's 2 pairs), f32 and bf16, offsets far
+     outside +-1 (phases 2 and 5's tolerances; route, times, bounds);
+     (b) side_tpu_torch.tools.offset_audit on the serving cell (384x1280,
+     bf16, phase 3's seeded weights, 2 rendered frames) and on phase 11's
+     trained checkpoint: 16 layers, finite statistics, each pass 16
+     forward launches a frame at the radius its mode calls for (R=1, then
+     R=-1); the captured offsets of one layer against F.conv2d of its
+     input (f32); every offset conv zeroed, the two passes within phase
+     2's tolerance; (c) side_tpu_torch.tools.finetune_clamp.run_recipe at
+     its defaults (160 + 40 epochs, f32, 2 scenes): A's training and
+     detection launch only at R=-1, B's detection and C's training and
+     detection only at R=1; the checkpoints tagged -1 and 1; finite
+     losses; the JAX recipe's summary keys (printed, no floor held: the
+     outcome is a draw, ROADMAP.md Queue 3 item 1); then the audit of A's
+     checkpoint loaded with the window in force (it stays) and its
+     statistics from the exact pass.  f32 has no deterministic K2 / K3
+     body, so the recipe runs in the default mode (said in its output).
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -172,6 +192,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # cuBLAS's setting for repeatable results (phases 5 and 11 run under
@@ -256,6 +277,8 @@ def reset_counts(kernels) -> None:
         kern.launches = 0
         if hasattr(kern, "tensor_core_launches"):
             kern.tensor_core_launches = 0
+        if hasattr(kern, "radius_launches"):
+            kern.radius_launches.clear()
 
 
 def route_and_earlier_ms(kernel, args, cin, cout, dtype):
@@ -1288,7 +1311,7 @@ def _protocol_digest(tmp: str, epochs: int) -> str:
     return cap["timing"]["weights_digest"]
 
 
-def phase_trained_checkpoint() -> dict:
+def phase_trained_checkpoint(keep_dir: str) -> dict:
     """The 16-scene protocol of side_tpu_torch.tools.acceptance_16 on the
     card in bf16: train on the fixed fixture, detect on the same scenes
     from the checkpoint written, score with the C++ evaluator.  Every
@@ -1303,13 +1326,15 @@ def phase_trained_checkpoint() -> dict:
     the protocol must end in the same weights: the phase's outcome is then
     the same every run on one card and software stack, where the default
     kernels' f32 atomics made the trained model, and with it the checks on
-    its detections, differ from run to run."""
+    its detections, differ from run to run.  The trained checkpoint is
+    copied to `keep_dir` for phase 14's offset audit."""
     from side_tpu_torch.ops.dcn_cuda import deterministic_mode
     with deterministic_mode():
-        return _trained_checkpoint()
+        return _trained_checkpoint(keep_dir)
 
 
-def _trained_checkpoint() -> dict:
+def _trained_checkpoint(keep_dir: str) -> dict:
+    import shutil
     import tempfile
     from dataclasses import replace
     from side_tpu_torch import val
@@ -1367,7 +1392,10 @@ def _trained_checkpoint() -> dict:
                "final_loss": timing["final_loss"],
                "launches": launches, "summary": summary,
                "weights_digest": timing["weights_digest"],
-               "convention_failed": acc.convention_failures(res)}
+               "convention_failed": acc.convention_failures(res),
+               "checkpoint": shutil.copy(
+                   cap["checkpoint"], os.path.join(keep_dir,
+                                                   "trained.npz"))}
         log(f"[trained] {n} scenes, {batch} pairs a step, {epochs} epochs: "
             f"{steps} steps in {timing['train_s']:.1f} s "
             f"({timing['s_per_epoch']:.3f} s per epoch, "
@@ -2210,6 +2238,283 @@ def phase_data_parallel() -> dict:
     return out
 
 
+# ------------------------- phase 14: exact mode, offset audit, the recipe
+EXACT_BATCH = 4                # the recipe's 2 pairs a step
+AUDIT_FRAMES = 2
+RECIPE_EPOCHS = (160, 40)      # finetune_clamp.run_recipe's defaults
+SUMMARY_KEYS = ["detected", "iou_min", "n_objects", "ry_max", "z_max",
+                "z_med"]       # tools/finetune_clamp.py:_summary's
+
+
+def _exact_rows() -> list:
+    """(a) The forward kernel, K2 and K3 in exact mode (R = -1) against the
+    plain exact version and its autograd at the 7 DeformBlock shapes of
+    the 128x384 protocol, B = 4 (2 pairs), f32 and bf16, offsets far
+    outside +-1: phases 2 and 5's tolerances (`_bwd_rows`)."""
+    from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(140)
+    rows = []
+    for shape, (_, n) in zip(PROTOCOL_SHAPES, SERVING_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows += _bwd_rows(gen, shape, n, dtype, -1, EXACT_BATCH,
+                              "far_outside", tag="exact")
+    return rows
+
+
+def _run_audit(label: str, det, frames) -> dict:
+    """`offset_audit.audit` over `frames` with the windowed mode in force
+    (its statistics from the clamped pass): 16 layers, finite statistics
+    and deltas, and each pass's 16 forward launches a frame at the radius
+    its mode calls for (R = 1, then R = -1), no other DCN kernel."""
+    from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.tools import offset_audit
+    reset_counts(KERNELS)
+    with dc.dcn_mode("windowed", 1):
+        res = offset_audit.audit(det, frames, log=lambda m: log(
+            f"[audit, {label}] {m.strip()}"))
+    layers = res["layers"]
+    check(len(layers) == 16 and all(
+        np.isfinite(v) for st in layers.values() for v in st.values()),
+        f"audit ({label}): {len(layers)} layers, {layers}")
+    check(all(np.isfinite(v) for row in res["deltas"] for k, v in
+              row.items() if k != "image"), f"audit ({label}): "
+          f"non-finite deltas {res['deltas']}")
+    n = 16 * len(frames)
+    for name, radius in (("windowed", 1), ("exact", -1)):
+        got = res["launches"][name]
+        at = {k: v for k, v in got.items()
+              if k.startswith("dcn_fwd_radius") and v}
+        check(got["dcn_fwd"] == n and at == {f"dcn_fwd_radius{radius}": n}
+              and got["dcn_bwd_dx"] == got["dcn_bwd_dcoord"]
+              == got["dcn_fwd_om"] == 0,
+              f"audit ({label}), {name} pass: launches {got}, expected "
+              f"{n} dcn_fwd at radius {radius}")
+    log(f"[audit, {label}] launches per pass "
+        f"{json.dumps(res['launches'])}")
+    return res
+
+
+def _capture_check(det, frame) -> float:
+    """The audit's captured offsets of the last DeformBlock against
+    F.conv2d of that block's input on the card, in f32 (TF32 off; the
+    network run in f32 for this forward): relative error."""
+    from side_tpu_torch.tools.offset_audit import DeformBlock, capture_offsets
+    name, block = [(n, m) for n, m in det.model.named_modules()
+                   if isinstance(m, DeformBlock)][-1]
+    seen, got = {}, {}
+    hook = block.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0].clone()))
+    dtype, det.model.dtype = det.model.dtype, torch.float32
+    try:
+        with capture_offsets(det.model, lambda n, o: got.setdefault(n, o)):
+            det.network(det.load_and_pre(frame[1], frame[2])["batch"])
+    finally:
+        hook.remove()
+        det.model.dtype = dtype
+    with torch.inference_mode():
+        om = F.conv2d(seen["x"], block.offset_mask.weight,
+                      block.offset_mask.bias, padding=1).permute(0, 2, 3, 1)
+    want = om.reshape(*om.shape[:3], 9, 3)[..., 0:2]
+    err = ((got[name] - want).abs().max() / want.abs().max()).item()
+    log(f"[audit] {name}: captured offsets {tuple(got[name].shape)} vs "
+        f"F.conv2d of its input, f32: max rel err {err:.3e}")
+    check(seen["x"].dtype == torch.float32 and
+          err <= TOLERANCE[torch.float32],
+          f"captured offsets of {name} differ from F.conv2d: {err}")
+    return err
+
+
+def _zeroed_check(det, frame) -> dict:
+    """Every offset conv zeroed: the clamped and the exact pass are one
+    function; every dense head within phase 2's forward tolerance (the
+    depth rows follow the decode order and are printed)."""
+    from side_tpu_torch.ops import deform_conv as dc
+    with torch.no_grad():
+        for name, m in det.model.named_modules():
+            if name.endswith("offset_mask"):
+                m.weight.zero_()
+                m.bias.zero_()
+    batch = det.load_and_pre(frame[1], frame[2])["batch"]
+    outs = {}
+    for mode in (("windowed", 1), ("exact", None)):
+        with dc.dcn_mode(*mode):
+            outs[mode[0]] = det.network(batch)
+    errs = {k: ((a.float() - outs["windowed"][k].float()).abs().max()
+                / outs["windowed"][k].float().abs().max().clamp_min(1e-30)
+                ).item()
+            for k, a in outs["exact"].items()}
+    log(f"[audit] offset convs zeroed, exact vs clamped, max rel err per "
+        f"output: {json.dumps(errs)}")
+    tol = TOLERANCE[det.model.dtype]
+    check(all(e <= tol for k, e in errs.items()
+              if outs["exact"][k].dim() == 4),
+          f"zeroed offsets: clamped and exact differ: {errs}")
+    return errs
+
+
+def _audit_phase(trained_ckpt: str) -> dict:
+    """(b) The offset audit on the serving cell (384x1280, bf16, phase 3's
+    He-scaled seeded weights with perturbed offset convs, 2 rendered
+    frames) and on phase 11's trained checkpoint (128x384, its 2 first
+    scenes, loaded keeping the mode)."""
+    from dataclasses import replace
+    from side_tpu_torch.config import Config
+    from side_tpu_torch.data.synthetic import (fixture_frames,
+                                               fixture_scenes, val_scenes)
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    from side_tpu_torch.tools import acceptance_16 as acc
+    det = Detector(Config())
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=1)
+    frames = val_scenes(AUDIT_FRAMES, seed=14)
+    out = {"serving": _run_audit("serving 384x1280", det, frames),
+           "capture_rel_err": _capture_check(det, frames[0]),
+           "zeroed_rel_err": _zeroed_check(det, frames[0])}
+    del det
+    cfg = acc.protocol_config("", "", batch_size=TRAINED_RUN[1],
+                              compute_dtype="bfloat16")
+    det = Detector(replace(cfg, load_model=trained_ckpt), keep_dcn_mode=True)
+    n = TRAINED_RUN[0]
+    frames = fixture_frames(fixture_scenes(n, 2, seed=0)[:AUDIT_FRAMES])
+    out["trained"] = _run_audit("phase 11's checkpoint", det, frames)
+    return out
+
+
+def _only_at(launches: dict, radius: int, kernels, what: str) -> None:
+    for k in kernels:
+        check(launches[k] > 0 and launches.get(f"{k}_radius{radius}", 0)
+              == launches[k],
+              f"{what}: {k} launched {launches[k]} times, "
+              f"{launches.get(f'{k}_radius{radius}', 0)} at radius {radius}: "
+              f"{launches}")
+
+
+def _recipe_phase() -> dict:
+    """(c) `finetune_clamp.run_recipe` at its defaults (f32): A trains and
+    detects exact, B detects A's checkpoint and C finetunes and detects at
+    R = 1, each launch counted per radius; the checkpoints' tags; finite
+    losses; the JAX recipe's summary keys; then the audit of A's
+    checkpoint, its statistics from the exact pass."""
+    import tempfile
+    from dataclasses import replace
+    from side_tpu_torch.data.synthetic import fixture_frames, fixture_scenes
+    from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.dcn_cuda import KERNELS, dcn_route
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.tools import acceptance_16 as acc
+    from side_tpu_torch.tools import finetune_clamp as fc
+    from side_tpu_torch.tools import offset_audit
+    routes = sorted({dcn_route(torch.float32, cin, cout)
+                     for cin, _, _, cout in acc.PROTOCOL_SHAPES})
+    note = (f"f32 runs the forward, K2 and K3 on the {routes} route at every "
+            f"protocol shape, where K2 and K3 add with f32 atomics "
+            f"(dcn_cuda.deterministic_mode has no repeatable body for "
+            f"them in f32, exact or windowed): the recipe runs in the "
+            f"default mode, and its outcome is one draw, not one per "
+            f"software stack")
+    log(f"[recipe] {note}")
+    epochs, epochs_ft = RECIPE_EPOCHS
+    kernels = ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord")
+    cap = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(KERNELS)
+        t0 = time.perf_counter()
+        summaries = fc.run_recipe(tmp, epochs, epochs_ft, verbose=True,
+                                  _capture=cap)
+        wall = time.perf_counter() - t0
+        tags = {k: int(np.load(cap[k]["checkpoint"])["meta::dcn_radius"])
+                for k in ("exact", "finetuned")}
+        a, b, c = cap["exact"], cap["naive"], cap["finetuned"]
+        _only_at(a["launches"]["train"], -1, kernels, "recipe A, training")
+        _only_at(a["launches"]["detect"], -1, kernels[:1],
+                 "recipe A, detection")
+        _only_at(b["launches"]["detect"], 1, kernels[:1],
+                 "recipe B, detection")
+        _only_at(c["launches"]["train"], 1, kernels, "recipe C, training")
+        _only_at(c["launches"]["detect"], 1, kernels[:1],
+                 "recipe C, detection")
+        for part in (a, b, c):
+            det = part["launches"]["detect"]
+            check(det["dcn_bwd_dx"] == det["dcn_bwd_dcoord"] == 0,
+                  f"recipe detection ran a backward kernel: {det}")
+        check(a["timing"]["steps"] == epochs and
+              c["timing"]["steps"] == epochs_ft,
+              f"recipe steps {a['timing']['steps']} / "
+              f"{c['timing']['steps']}")
+        for k in kernels:
+            check(a["launches"]["train"][k] == 16 * epochs and
+                  c["launches"]["train"][k] == 16 * epochs_ft,
+                  f"recipe {k}: {a['launches']['train'][k]} / "
+                  f"{c['launches']['train'][k]} training launches")
+        check(tags == {"exact": -1, "finetuned": 1},
+              f"checkpoint tags {tags}")
+        losses = {k: cap[k]["timing"]["final_loss"]
+                  for k in ("exact", "finetuned")}
+        check(all(np.isfinite(v) for d in losses.values()
+                  for v in d.values()), f"recipe losses {losses}")
+        check(all(sorted(v) == SUMMARY_KEYS for v in summaries.values())
+              and list(summaries) == ["exact", "naive", "finetuned"],
+              f"recipe summaries {summaries}")
+        # the audit of A's exact-tagged checkpoint, loaded as the audit's
+        # CLI loads it: the window stays in force; then its statistics from
+        # the exact pass (the offsets A was trained to produce)
+        cfg = acc.protocol_config("", "")
+        with dc.dcn_mode("windowed", 1):
+            det = Detector(replace(cfg, load_model=a["checkpoint"]),
+                           keep_dcn_mode=True)
+            check(dc.dcn_radius_tag() == 1, "loading A's checkpoint for "
+                  f"the audit switched the mode to {dc.dcn_radius_tag()}")
+        frames = fixture_frames(fixture_scenes(2, 2, seed=0)[:2])
+        audit_a = _run_audit("A's checkpoint, windowed in force", det,
+                             frames)
+        with dc.dcn_mode("exact"):
+            audit_a_exact = offset_audit.audit(
+                det, frames, radius=1,
+                log=lambda m: log(f"[audit, A's checkpoint, exact pass] "
+                                  f"{m.strip()}"))
+        check(audit_a["stats_pass"] == "windowed" and
+              audit_a_exact["stats_pass"] == "exact" and
+              len(audit_a_exact["layers"]) == 16, "audit of A's checkpoint")
+    out = {"epochs": epochs, "epochs_ft": epochs_ft, "wall_s": wall,
+           "summaries": summaries, "tags": tags, "losses": losses,
+           "deterministic": note,
+           "launches": {k: cap[k]["launches"] for k in cap},
+           "timing": {k: {t: cap[k]["timing"].get(t) for t in
+                          ("train_s", "ms_per_step", "detect_s")}
+                      for k in cap},
+           "audit_exact_checkpoint": audit_a_exact,
+           "audit_exact_checkpoint_windowed": audit_a}
+    log(f"[recipe] {epochs} + {epochs_ft} epochs, f32, {wall:.1f} s: "
+        f"summaries {json.dumps(summaries)}; tags {json.dumps(tags)}; "
+        f"final losses {json.dumps(losses)}; "
+        f"timing {json.dumps(out['timing'])}; launches "
+        f"{json.dumps(out['launches'])}")
+    return out
+
+
+def phase_exact_audit_recipe(trained_ckpt: str) -> dict:
+    """Phase 14: (a) the DCN kernels in exact mode at the protocol's
+    shapes, (b) the offset audit at full width and on phase 11's
+    checkpoint, (c) the clamp-finetune recipe."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"exact": _exact_rows()}
+    t = time.perf_counter()
+    out["audit"] = _audit_phase(trained_ckpt)
+    out["audit_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["recipe"] = _recipe_phase()
+    out["recipe_s"] = time.perf_counter() - t
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 14] audit {out['audit_s']:.1f} s, recipe "
+        f"{out['recipe_s']:.1f} s, phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _shape(row) -> tuple:
     return (row["cin"], row["h"], row["w"], row["cout"])
 
@@ -2253,9 +2558,11 @@ def main() -> int:
     fused = phase_fused_kernel()
     gather = phase_gather_kernel()
     validation = phase_validation()
-    trained = phase_trained_checkpoint()
-    zoo = phase_model_zoo()
-    dp = phase_data_parallel()
+    with tempfile.TemporaryDirectory() as keep:
+        trained = phase_trained_checkpoint(keep)
+        zoo = phase_model_zoo()
+        dp = phase_data_parallel()
+        p14 = phase_exact_audit_recipe(trained["checkpoint"])
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -2482,6 +2789,44 @@ def main() -> int:
                              dp["gloo_one_card"]["launches_per_rank"]],
                 "path": f"data-parallel training, 2 gloo ranks on one "
                         f"card, {DP_STEPS} steps of 2 pairs a rank"}
+    # phase 14: exact mode at the protocol's shapes, the audit's and the
+    # recipe's launches
+    for entry in entries:
+        name = entry["name"]
+        if name not in DP_KERNELS:
+            continue
+        rows = [r for r in p14["exact"] if r["kernel"] == name]
+        audit, recipe = p14["audit"], p14["recipe"]["launches"]
+        entry["exact_protocol"] = {
+            "unit": "one recipe step at 128x384 (16 launches, B=4), exact "
+                    "mode (R=-1), offsets far outside +-1",
+            **{dtype: {key: _per_unit([r for r in rows
+                                       if r["dtype"] == dtype], key,
+                                      "per_step")
+                       for key in ("ms", "plain_ms", "bound_ms")}
+               for dtype in ("float32", "bfloat16")},
+            "routes_checked": _routes(rows),
+            "max_rel_err_bf16": max(r["max_rel_err"] for r in rows
+                                    if r["dtype"] == "bfloat16"),
+            "max_rel_err_f32": max(r["max_rel_err"] for r in rows
+                                   if r["dtype"] == "float32"),
+            "per_shape": rows}
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   max(r["max_abs_err"] for r in rows))
+        entry["launches_phase14"] = {
+            "recipe": {f"{phase} {part}": {
+                k.replace(f"{name}_", ""): v
+                for k, v in recipe[phase][part].items()
+                if k == name or k.startswith(f"{name}_radius")}
+                for phase in recipe for part in recipe[phase]}}
+        if name == "dcn_fwd":
+            entry["launches_phase14"].update({
+                f"audit {cell} {mode} pass": {
+                    k.replace(f"{name}_", ""): v
+                    for k, v in audit[cell]["launches"][mode].items()
+                    if k == name or k.startswith(f"{name}_radius")}
+                for cell in ("serving", "trained")
+                for mode in ("windowed", "exact")})
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
@@ -2518,6 +2863,20 @@ def main() -> int:
         f"world-1 nccl {dp['nccl_world1']['loss_rel_err']:.2e}; nccl two "
         f"cards {two if isinstance(two, str) else two['step_ms']}; phase "
         f"{dp['phase_s']:.1f} s")
+    rec = p14["recipe"]
+    log(f"[summary] phase 14: exact-mode kernels at the protocol's shapes "
+        f"{len(p14['exact'])} rows held; audit serving global max "
+        f"|offset| {p14['audit']['serving']['global_max']:.3f}, deltas "
+        f"{json.dumps(p14['audit']['serving']['deltas'])}; trained "
+        f"checkpoint global max "
+        f"{p14['audit']['trained']['global_max']:.3f}, deltas "
+        f"{json.dumps(p14['audit']['trained']['deltas'])}; recipe "
+        f"{rec['epochs']} + {rec['epochs_ft']} epochs "
+        f"{rec['wall_s']:.1f} s: {json.dumps(rec['summaries'])}; A's "
+        f"checkpoint global max |offset| "
+        f"{rec['audit_exact_checkpoint']['global_max']:.3f}; phase "
+        f"{p14['phase_s']:.1f} s; script "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"],

@@ -45,8 +45,11 @@ imported or built when this module is imported.
 `DCN_FWD_OM(x, om, weight, bias, radius)` launch their kernel on
 PyTorch's current stream for CUDA tensors and raise on anything they cannot
 take; they never fall back to the plain version, and a build or launch
-error never changes the route.  Each counts its launches in `.launches`
-and those that took the tensor-core route in `.tensor_core_launches`.
+error never changes the route.  Each counts its launches in `.launches`,
+those that took the tensor-core route in `.tensor_core_launches`, and its
+launches per offset bound in `.radius_launches` ({radius: n}, -1 = exact);
+`launch_counts()` reads every kernel's counters, `launches_since` the
+launches after an earlier reading.
 Their `cuda_core=True` argument is the test entry that times the CUDA-core
 body on operands the tensor-core route would take (K2's `scatter="tile"`
 likewise the device-memory scatter on operands the patch body would take).
@@ -61,6 +64,7 @@ import shutil
 import subprocess
 import threading
 import warnings
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional, Sequence
@@ -370,13 +374,23 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-class DcnForwardKernel:
-    """`dcn_fwd_launch` with a launch counter, and a counter of the launches
-    that took the tensor-core route."""
+class _CountedKernel:
+    """Launch counters of a DCN wrapper: all launches, those on the
+    tensor-core route, and per offset bound (-1 = exact)."""
 
     def __init__(self):
         self.launches = 0
         self.tensor_core_launches = 0
+        self.radius_launches = Counter()
+
+    def _count(self, route: str, radius: int) -> None:
+        self.launches += 1
+        self.tensor_core_launches += route == "tensor"
+        self.radius_launches[int(radius)] += 1
+
+
+class DcnForwardKernel(_CountedKernel):
+    """`dcn_fwd_launch` with launch counters (`_CountedKernel`)."""
 
     def __call__(self, x: torch.Tensor, offset: torch.Tensor,
                  mask: torch.Tensor, weight: torch.Tensor,
@@ -400,8 +414,7 @@ class DcnForwardKernel:
             B, H, W, C, Cout, int(radius), _dtype_code(x),
             _ROUTE_CODE[route], splits, smem, _stream(x.device))
         FWD_LIB.check(err, "dcn_fwd")
-        self.launches += 1
-        self.tensor_core_launches += route == "tensor"
+        self._count(route, radius)
         return out
 
 
@@ -418,15 +431,13 @@ def _forward_route(x: torch.Tensor, C: int, Cout: int, cuda_core: bool):
     return route, plan["splits"], plan["smem_bytes"], part
 
 
-class DcnBackwardDx:
-    """K2 (`dcn_bwd_dx_launch`): d_x of the DCN forward, with a launch
-    counter, and a counter of the launches that took the tensor-core
-    route."""
+class DcnBackwardDx(_CountedKernel):
+    """K2 (`dcn_bwd_dx_launch`): d_x of the DCN forward, with launch
+    counters (`_CountedKernel`)."""
 
     def __init__(self, lib: CudaLibrary = BWD_LIB):
+        super().__init__()
         self.lib = lib
-        self.launches = 0
-        self.tensor_core_launches = 0
 
     def __call__(self, g: torch.Tensor, offset: torch.Tensor,
                  mask: torch.Tensor, weight: torch.Tensor,
@@ -474,19 +485,13 @@ class DcnBackwardDx:
             _dtype_code(g), _ROUTE_CODE[route], patch_h, splits, smem,
             _stream(g.device))
         self.lib.check(err, "dcn_bwd_dx")
-        self.launches += 1
-        self.tensor_core_launches += route == "tensor"
+        self._count(route, radius)
         return dx if patch_h else dx.to(g.dtype)
 
 
-class DcnBackwardDcoord:
+class DcnBackwardDcoord(_CountedKernel):
     """K3 (`dcn_bwd_dcoord_launch`): d_offset, d_mask and d_weight of the DCN
-    forward, with a launch counter, and a counter of the launches that took
-    the tensor-core route."""
-
-    def __init__(self):
-        self.launches = 0
-        self.tensor_core_launches = 0
+    forward, with launch counters (`_CountedKernel`)."""
 
     def __call__(self, x: torch.Tensor, g: torch.Tensor,
                  offset: torch.Tensor, mask: torch.Tensor,
@@ -530,8 +535,7 @@ class DcnBackwardDcoord:
             d_w.data_ptr(), B, H, W, C, Cout, int(radius), _dtype_code(x),
             _ROUTE_CODE[route], slices, int(det), smem, _stream(x.device))
         BWD_LIB.check(err, "dcn_bwd_dcoord")
-        self.launches += 1
-        self.tensor_core_launches += route == "tensor"
+        self._count(route, radius)
         if copies > 1:
             d_off, d_mask = d_off.sum(0), d_mask.sum(0)
         else:
@@ -539,14 +543,9 @@ class DcnBackwardDcoord:
         return d_off, d_mask, d_w.sum(0) if det else d_w[0]
 
 
-class DcnForwardOmKernel:
+class DcnForwardOmKernel(_CountedKernel):
     """K4 (`dcn_fwd_om_launch`): the forward fed the raw offset/mask conv
-    output, with a launch counter, and a counter of the launches that took
-    the tensor-core route."""
-
-    def __init__(self):
-        self.launches = 0
-        self.tensor_core_launches = 0
+    output, with launch counters (`_CountedKernel`)."""
 
     def __call__(self, x: torch.Tensor, om: torch.Tensor,
                  weight: torch.Tensor, bias: torch.Tensor,
@@ -570,8 +569,7 @@ class DcnForwardOmKernel:
             B, H, W, C, Cout, int(radius), _dtype_code(x),
             _ROUTE_CODE[route], splits, smem, _stream(x.device))
         OM_LIB.check(err, "dcn_fwd_om")
-        self.launches += 1
-        self.tensor_core_launches += route == "tensor"
+        self._count(route, radius)
         return out
 
 
@@ -637,3 +635,20 @@ DCN_BWD_DCOORD = DcnBackwardDcoord()
 DCN_FWD_OM = DcnForwardOmKernel()
 KERNELS = {"dcn_fwd": DCN_FWD, "dcn_bwd_dx": DCN_BWD_DX,
            "dcn_bwd_dcoord": DCN_BWD_DCOORD, "dcn_fwd_om": DCN_FWD_OM}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches, those on the tensor-core route
+    (`<name>_tensor_core`) and those at each offset bound
+    (`<name>_radius<R>`, R = -1 for exact)."""
+    counts = {k: v.launches for k, v in KERNELS.items()}
+    for k, v in KERNELS.items():
+        counts[f"{k}_tensor_core"] = v.tensor_core_launches
+        for r, n in v.radius_launches.items():
+            counts[f"{k}_radius{r}"] = n
+    return counts
+
+
+def launches_since(before: dict) -> dict:
+    """The launches since `before` (a `launch_counts()`)."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()}

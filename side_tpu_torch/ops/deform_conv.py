@@ -62,6 +62,11 @@ def get_dcn_mode() -> str:
     return _mode
 
 
+def get_dcn_radius() -> int:
+    """The window's radius R, kept while the mode is exact."""
+    return _radius
+
+
 @contextlib.contextmanager
 def dcn_mode(mode: str, radius: Optional[int] = None):
     """Scoped DCN mode override; restores the prior mode on exit."""

@@ -69,7 +69,11 @@ def _imread(path: str) -> np.ndarray:
 
 
 class Detector:
-    def __init__(self, cfg: Config, device=None, seed: int = 0):
+    def __init__(self, cfg: Config, device=None, seed: int = 0,
+                 keep_dcn_mode: bool = False):
+        """`keep_dcn_mode`: load `cfg.load_model` keeping the DCN mode in
+        force, with a warning where the checkpoint's radius differs (the
+        JAX package's rule), instead of switching to the checkpoint's."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.reference_exact and os.environ.get("SIDE_TPU_TORCH_DCN") is None:
@@ -77,7 +81,8 @@ class Detector:
         model = create_model(cfg, seed=seed)
         check_stereo_model(model, cfg)
         if cfg.load_model:
-            weights.load_npz(model, cfg.load_model)
+            weights.load_npz(model, cfg.load_model,
+                             keep_dcn_mode=keep_dcn_mode)
         self.model = model.to(self.device).eval()
         self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
                                  device=self.device)

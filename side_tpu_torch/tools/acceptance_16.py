@@ -70,24 +70,12 @@ def protocol_config(data_dir, save_dir, input_hw=(128, 384), batch_size=2,
                   peak_thresh=0.25)
 
 
-def _launch_counts() -> dict:
-    from ..ops.dcn_cuda import KERNELS
-    counts = {k: v.launches for k, v in KERNELS.items()}
-    counts.update({f"{k}_tensor_core": v.tensor_core_launches
-                   for k, v in KERNELS.items()
-                   if hasattr(v, "tensor_core_launches")})
-    return counts
-
-
-def _since(before: dict) -> dict:
-    return {k: v - before[k] for k, v in _launch_counts().items()}
-
-
 def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                    run_align=True, verbose=False, n_scenes=2,
                    batch_size=2, inject=None, ckpt=None,
                    compute_dtype="float32", device=None, radius=1,
-                   deterministic=False, _capture=None):
+                   deterministic=False, keep_dcn_mode=False, init=None,
+                   _capture=None):
     """Train on the fixture and close the full accuracy loop; returns
     (aps, per-object errors).
 
@@ -98,11 +86,16 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     results, the paths, wall times and the DCN kernels' launches during
     training and during detection.  `radius`: the DCN's offset bound, 1 as
     in the JAX protocol; -1 runs the exact (unbounded) DCN.
-    `deterministic`: train and detect under `dcn_cuda.deterministic_mode`."""
+    `deterministic`: train and detect under `dcn_cuda.deterministic_mode`.
+    `keep_dcn_mode`: detect at `radius` whatever the checkpoint's
+    `meta::dcn_radius` says (by default the Detector switches to it).
+    `init`: a checkpoint the Trainer loads (weights only, a fresh Adam)
+    before it trains."""
     from ..data.loader import Loader
     from ..data.synthetic import FixtureKitti, fixture_frames, fixture_scenes
     from ..models.factory import create_model
-    from ..ops.dcn_cuda import deterministic_mode
+    from ..ops.dcn_cuda import (deterministic_mode, launch_counts,
+                                launches_since)
     from ..runtime.detector import Detector
     from ..runtime.trainer import Trainer
     from .. import val
@@ -135,7 +128,9 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                             seed=0)
             trainer = Trainer(cfg, create_model(cfg, seed=0),
                               steps_per_epoch=len(loader), device=device)
-            before = _launch_counts()
+            if init:
+                trainer.load(init)
+            before = launch_counts()
             t0 = time.perf_counter()
             for epoch in range(1, epochs + 1):
                 stats = trainer.train(epoch, loader)
@@ -144,7 +139,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                           " ".join(f"{k}={v:.3f}" for k, v in stats.items()),
                           flush=True)
             train_s = time.perf_counter() - t0
-            launches["train"] = _since(before)
+            launches["train"] = launches_since(before)
             assert np.isfinite(stats["loss"]), stats
             timing.update(train_s=train_s, epochs=epochs,
                           steps=trainer.step,
@@ -157,8 +152,9 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
             del trainer
 
         # -------- inference on the (identical) val split, full tail -------
-        detector = Detector(replace(cfg, load_model=path), device=device)
-        before = _launch_counts()
+        detector = Detector(replace(cfg, load_model=path), device=device,
+                            keep_dcn_mode=keep_dcn_mode)
+        before = launch_counts()
         t0 = time.perf_counter()
         results, _, _ = val.run_pass(cfg, frames, detector, n=len(frames),
                                      eval_batch=1, no_align=not run_align)
@@ -168,7 +164,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                        if run_align else results)
         timing["detect_s"] = time.perf_counter() - t0
         timing["detect_frames"] = len(frames) * (2 if run_align else 1)
-        launches["detect"] = _since(before)
+        launches["detect"] = launches_since(before)
     if verbose and run_align:
         for img_id in results:
             for cls in results[img_id]:

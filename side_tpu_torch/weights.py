@@ -16,7 +16,8 @@ the JAX package.  `load_npz` reads the JAX checkpoint format
 (runtime/checkpoint.py of the JAX package: `params::<path>`,
 `batch_stats::<path>`, `meta::dcn_radius`) into a model with the same
 shape-tolerant merge, and puts the port's DCN mode in line with the radius
-the checkpoint was trained with.
+the checkpoint was trained with (or, with `keep_dcn_mode=True`, keeps the
+mode in force and only warns, as the JAX package does).
 
 `jax_param_order` gives the order in which the JAX package's Adam state
 lists a model's parameters (`jax.tree.leaves` of {"loss_weight", "model"}:
@@ -170,19 +171,29 @@ def _radius_name(r: int) -> str:
     return "exact (unbounded)" if r < 0 else f"windowed R={r}"
 
 
-def apply_radius(stored, log: Callable[[str], None] = print) -> None:
+def apply_radius(stored, log: Callable[[str], None] = print,
+                 keep_dcn_mode: bool = False) -> None:
     """Run with the DCN offset bound the checkpoint was trained with: warn
     when the one in force differs, then switch to the stored one (-1 =
-    exact).  A checkpoint without the tag changes nothing."""
+    exact).  With `keep_dcn_mode` warn and keep the one in force (the JAX
+    package's behaviour: a caller that sets the mode on purpose, as the
+    offset audit and the clamp-finetune recipe do).  A checkpoint without
+    the tag changes nothing."""
     if stored is None:
         return
     active = dc.dcn_radius_tag()
-    if stored != active:
+    if stored == active:
+        return
+    if keep_dcn_mode:
         log(f"WARNING: checkpoint trained with DCN {_radius_name(stored)} "
-            f"but the port was set to {_radius_name(active)}; switching to "
-            f"{_radius_name(stored)} (the offset clamp is part of the "
-            f"trained function)")
-        dc.set_dcn_radius_tag(stored)
+            f"but running with {_radius_name(active)}, as the caller set "
+            f"it (the offset clamp is part of the trained function)")
+        return
+    log(f"WARNING: checkpoint trained with DCN {_radius_name(stored)} "
+        f"but the port was set to {_radius_name(active)}; switching to "
+        f"{_radius_name(stored)} (the offset clamp is part of the "
+        f"trained function)")
+    dc.set_dcn_radius_tag(stored)
 
 
 def merge_state(model: nn.Module, loaded: Mapping[str, torch.Tensor],
@@ -210,8 +221,11 @@ def merge_state(model: nn.Module, loaded: Mapping[str, torch.Tensor],
 
 
 def load_npz(model: nn.Module, path: str,
-             log: Callable[[str], None] = print) -> None:
-    """Load a JAX `.npz` checkpoint into `model` and apply its DCN radius."""
+             log: Callable[[str], None] = print,
+             keep_dcn_mode: bool = False) -> None:
+    """Load a JAX `.npz` checkpoint into `model` and switch to its DCN
+    radius, or with `keep_dcn_mode` keep the mode in force
+    (`apply_radius`)."""
     ck = read_npz(path)
     merge_state(model, from_flax(ck["params"], ck["batch_stats"]), log)
-    apply_radius(ck["dcn_radius"], log)
+    apply_radius(ck["dcn_radius"], log, keep_dcn_mode)

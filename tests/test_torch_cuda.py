@@ -32,6 +32,8 @@ bits on a second call.  K5 has two bodies (ops/gather_cuda.py:gather_body), both
 to the same tolerance.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -782,9 +784,10 @@ def test_kernels_at_the_resdcn_shapes_on_card(card, shape, batch, dtype):
     _check_kernels_at(card, shape, dtype, batch, 1.0)
 
 
-def _check_kernels_at(card, shape, dtype, batch, off_scale):
+def _check_kernels_at(card, shape, dtype, batch, off_scale, radius=1):
     """Forward, K2 and K3 through DcnFunction against the plain version and
-    its autograd at one shape (offsets in +-1.5 * off_scale)."""
+    its autograd at one shape (offsets in +-1.5 * off_scale), windowed at
+    `radius` or exact where it is -1."""
     cin, h, w_, cout = shape
     gen = torch.Generator(card).manual_seed(sum(shape) + batch)
     x = torch.randn(batch, h, w_, cin, device=card, generator=gen).to(dtype)
@@ -796,28 +799,118 @@ def _check_kernels_at(card, shape, dtype, batch, off_scale):
     b = torch.randn(cout, device=card, generator=gen) * 0.1
     g = torch.randn(batch, h, w_, cout, device=card,
                     generator=gen).to(dtype)
-    before = [k.tensor_core_launches
-              for k in (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)]
-    with tdc.dcn_mode("windowed", 1):
+    kernels = (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD)
+    before = [k.tensor_core_launches for k in kernels]
+    at_radius = [k.radius_launches[radius] for k in kernels]
+    with (tdc.dcn_mode("windowed", radius) if radius >= 0
+          else tdc.dcn_mode("exact")):
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in (x, off, mask, w, b)]
         out = tdc.deform_conv2d(*leaves)
         out.backward(g)
     got = [out.detach()] + [t.grad for t in leaves]
+    assert [k.radius_launches[radius] - n
+            for k, n in zip(kernels, at_radius)] == [1, 1, 1]
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (x, off, mask, w, b)]
-    ref = tdc.deform_conv_plain(*leaves, 1)
+    ref = tdc.deform_conv_plain(*leaves, radius)
     ref.backward(g)
     want = [ref.detach()] + [t.grad for t in leaves]
     tensor = dtype == torch.bfloat16
     assert [k.tensor_core_launches - n for k, n in zip(
-        (DCN_FWD, DCN_BWD_DX, DCN_BWD_DCOORD), before)] == [int(tensor)] * 3
+        kernels, before)] == [int(tensor)] * 3
     for name, a, r in zip(("out", "x", "offset", "mask", "weight", "bias"),
                           got, want):
         err = float((a.float() - r.float()).abs().max() /
                     r.float().abs().max())
         tol = (TOL if name == "out" else BWD_TOL)[dtype]
         assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_exact_kernels_at_a_protocol_shape_on_card(card, dtype):
+    """Exact mode (R = -1), as the clamp-finetune recipe trains: the forward
+    kernel, K2 and K3 against the plain exact version and its autograd at
+    the protocol's Cin-256, Cout-64 shape with 2 pairs (B = 4), offsets far
+    outside +-1; each launch counted at radius -1."""
+    _check_kernels_at(card, PROTOCOL_SHAPES[3], dtype, 4, 8.0, radius=-1)
+
+
+def _small_detector(card):
+    """A 128x256 f32 flagship on the card, He-scaled with seeded offset
+    convs (chip_smoke.py phase 3's weights): offsets reach past +-1."""
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    det = Detector(Config(input_h=128, input_w=256, K=12, cv_topk=6,
+                          compute_dtype="float32"), device=card)
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=3)
+    return det
+
+
+def test_offset_audit_capture_matches_conv_on_card(card):
+    """The audit's capture of every DeformBlock's offsets equals F.conv2d
+    of that block's input on the card (f32, TF32 off), split per tap
+    [dy, dx, logit], and leaves the network's output as it was."""
+    import functools
+    from side_tpu_torch.data.synthetic import val_scenes
+    from side_tpu_torch.tools import offset_audit
+    det = _small_detector(card)
+    _, images, calib = val_scenes(1, seed=2)[0]
+    batch = det.load_and_pre(images, calib)["batch"]
+    inputs, got = {}, {}
+    blocks = {n: m for n, m in det.model.named_modules()
+              if isinstance(m, offset_audit.DeformBlock)}
+    handles = [m.register_forward_pre_hook(functools.partial(
+        lambda n, mod, args: inputs.setdefault(n, args[0].clone()), n))
+        for n, m in blocks.items()]
+    try:
+        with offset_audit.capture_offsets(det.model,
+                                          lambda n, o: got.setdefault(n, o)):
+            out = det.network(batch)
+    finally:
+        for h in handles:
+            h.remove()
+    assert list(got) == list(blocks) and len(got) == 16
+    for name, block in blocks.items():
+        with torch.no_grad():
+            om = torch.nn.functional.conv2d(
+                inputs[name], block.offset_mask.weight,
+                block.offset_mask.bias, padding=1).permute(0, 2, 3, 1)
+        want = om.reshape(*om.shape[:3], 9, 3)[..., 0:2]
+        err = float((got[name] - want).abs().max() / want.abs().max())
+        assert err <= 1e-6, (name, err)
+    assert max(float(o.abs().max()) for o in got.values()) > 1.0
+    assert torch.equal(det.network(batch)["hm"], out["hm"])
+
+
+def test_keep_mode_load_on_card(card, tmp_path):
+    """An exact-tagged checkpoint loaded with keep_dcn_mode runs its forward
+    at R = 1 on the card (16 launches at radius 1, none at -1); the
+    default load switches to exact (16 at radius -1)."""
+    from side_tpu_torch import weights
+    from side_tpu_torch.data.synthetic import val_scenes
+    from side_tpu_torch.runtime import checkpoint
+    from side_tpu_torch.runtime.detector import Detector
+    det = _small_detector(card)
+    path = str(tmp_path / "exact.npz")
+    params, stats = weights.to_flax(det.model.state_dict())
+    with tdc.dcn_mode("exact"):
+        checkpoint.save_checkpoint(path, 1, params, stats)
+    cfg = dataclasses.replace(det.cfg, load_model=path)
+    _, images, calib = val_scenes(1, seed=2)[0]
+    for keep, radius in ((True, 1), (False, -1)):
+        with tdc.dcn_mode("windowed", 1):
+            det = Detector(cfg, device=card, keep_dcn_mode=keep)
+            before = dict(DCN_FWD.radius_launches)
+            det.network(det.load_and_pre(images, calib)["batch"])
+            torch.cuda.synchronize()
+            launched = {r: n - before.get(r, 0)
+                        for r, n in DCN_FWD.radius_launches.items()
+                        if n - before.get(r, 0)}
+            assert launched == {radius: 16}, (keep, launched)
+            assert tdc.dcn_radius_tag() == radius
 
 
 def test_box_solver_moves_under_inference_mode_on_card(card):
