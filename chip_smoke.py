@@ -173,7 +173,15 @@ Phases, each of which must pass:
      outcome is a draw, ROADMAP.md Queue 3 item 1); then the audit of A's
      checkpoint loaded with the window in force (it stays) and its
      statistics from the exact pass.  f32 has no deterministic K2 / K3
-     body, so the recipe runs in the default mode (said in its output).
+     body, so the recipe runs in the default mode (said in its output);
+ 15. acceptance over seeds: side_tpu_torch.tools.acceptance_rate's run
+     (`run_one`) of the 2-scene protocol at f32 (TF32 off, windowed R=1,
+     default mode) at seeds 0 and 1, with both TF32 flags on before it
+     and given back after: the two initial weights differ and the
+     fixture is the same; finite losses; 16 launches each of the forward
+     kernel, K2 and K3 a step, all on the f32 (CUDA-core) route.  Each
+     seed's failed floors are printed, not held: a floor is a share over
+     seeds (PERF.md, "Acceptance over seeds"), not a per-run check.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -2515,6 +2523,66 @@ def phase_exact_audit_recipe(trained_ckpt: str) -> dict:
     return out
 
 
+# ------------------------------------- phase 15: acceptance over seeds
+SHARE_SEEDS = (0, 1)
+
+
+def phase_acceptance_seeds() -> dict:
+    """Phase 15: `acceptance_rate.run_one`, the 2-scene protocol at f32
+    (windowed R = 1, default mode), at each of SHARE_SEEDS."""
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    from side_tpu_torch.tools import acceptance_rate as rate
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    kernels = ("dcn_fwd", "dcn_bwd_dx", "dcn_bwd_dcoord")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in SHARE_SEEDS:
+            for f in flags:
+                f.allow_tf32 = True
+            cap = {}
+            reset_counts(KERNELS)
+            line = rate.run_one(tmp, 2, "windowed", "float32", seed,
+                                _capture=cap)
+            check(all(f.allow_tf32 for f in flags),
+                  f"seed {seed}: the run did not give the TF32 flags back")
+            for f in flags:
+                f.allow_tf32 = False
+            timing, train = cap["timing"], cap["launches"]["train"]
+            steps = timing["steps"]
+            for name in kernels:
+                check(train[name] == 16 * steps and
+                      train[f"{name}_tensor_core"] == 0,
+                      f"seed {seed}: {name} launched {train[name]} times "
+                      f"({train[f'{name}_tensor_core']} on the tensor-core "
+                      f"route) in {steps} steps, expected {16 * steps} on "
+                      f"the f32 route")
+            check(all(np.isfinite(v) for v in timing["final_loss"].values()),
+                  f"seed {seed}: losses {timing['final_loss']}")
+            runs[seed] = {"line": line,
+                          "initial_digest": cap["initial_digest"],
+                          "fixture_digest": cap["fixture_digest"],
+                          "launches": cap["launches"],
+                          "ms_per_step": timing["ms_per_step"],
+                          "final_loss": timing["final_loss"]}
+            log(f"[seeds] seed {seed}: {json.dumps(line)}; initial weights "
+                f"{cap['initial_digest'][:12]}, fixture "
+                f"{cap['fixture_digest'][:12]}; {steps} steps, "
+                f"{timing['ms_per_step']:.1f} ms a step; launches "
+                f"{json.dumps(cap['launches'])}")
+    a, b = (runs[s] for s in SHARE_SEEDS)
+    check(a["initial_digest"] != b["initial_digest"],
+          "two seeds drew the same initial weights")
+    check(a["fixture_digest"] == b["fixture_digest"],
+          "two seeds trained on different fixtures")
+    out = {"runs": runs, "phase_s": time.perf_counter() - t_phase,
+           "floors_failed": {seed: r["line"]["floors_failed"]
+                             for seed, r in runs.items()}}
+    log(f"[seeds] floors failed by seed (printed, not held): "
+        f"{json.dumps(out['floors_failed'])}; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _shape(row) -> tuple:
     return (row["cin"], row["h"], row["w"], row["cout"])
 
@@ -2563,6 +2631,7 @@ def main() -> int:
         zoo = phase_model_zoo()
         dp = phase_data_parallel()
         p14 = phase_exact_audit_recipe(trained["checkpoint"])
+    p15 = phase_acceptance_seeds()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -2827,6 +2896,13 @@ def main() -> int:
                     if k == name or k.startswith(f"{name}_radius")}
                 for cell in ("serving", "trained")
                 for mode in ("windowed", "exact")})
+    # phase 15: the launches of each seed's 2-scene f32 run
+    for entry in entries:
+        if entry["name"] in DP_KERNELS:
+            entry["launches_acceptance_seeds"] = {
+                f"seed {seed}": {part: r["launches"][part][entry["name"]]
+                                 for part in ("train", "detect")}
+                for seed, r in p15["runs"].items()}
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
@@ -2876,6 +2952,10 @@ def main() -> int:
         f"checkpoint global max |offset| "
         f"{rec['audit_exact_checkpoint']['global_max']:.3f}; phase "
         f"{p14['phase_s']:.1f} s; script "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[summary] phase 15: floors failed by seed "
+        f"{json.dumps(p15['floors_failed'])}; phase "
+        f"{p15['phase_s']:.1f} s; script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

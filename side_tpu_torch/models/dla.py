@@ -431,9 +431,12 @@ class FeatureExtractor(nn.Module):
 
 
 def lecun_init_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """flax lecun_normal (variance 1/fan_in), untruncated."""
+    """flax lecun_normal: a normal truncated at +-2 standard units, scaled
+    by fan_in^-0.5 over the truncated unit normal's std (0.8796...), so
+    that the variance is 1/fan_in."""
     with torch.no_grad():
-        w.copy_(torch.randn(w.shape, generator=gen) * w[0].numel() ** -0.5)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.mul_(w[0].numel() ** -0.5 / 0.87962566103423978)
 
 
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:

@@ -75,7 +75,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                    batch_size=2, inject=None, ckpt=None,
                    compute_dtype="float32", device=None, radius=1,
                    deterministic=False, keep_dcn_mode=False, init=None,
-                   _capture=None):
+                   seed=0, _capture=None):
     """Train on the fixture and close the full accuracy loop; returns
     (aps, per-object errors).
 
@@ -83,14 +83,17 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     discriminative one.  `inject` corrupts the predictions before they are
     saved (see `save_and_eval`).  `ckpt`: a model_last.npz of an earlier
     run of the same protocol; training is skipped.  `_capture` receives the
-    results, the paths, wall times and the DCN kernels' launches during
-    training and during detection.  `radius`: the DCN's offset bound, 1 as
+    results, the paths, wall times, the DCN kernels' launches during
+    training and during detection, and the digests of the fixture's scenes
+    and of the initial weights.  `radius`: the DCN's offset bound, 1 as
     in the JAX protocol; -1 runs the exact (unbounded) DCN.
     `deterministic`: train and detect under `dcn_cuda.deterministic_mode`.
     `keep_dcn_mode`: detect at `radius` whatever the checkpoint's
     `meta::dcn_radius` says (by default the Detector switches to it).
     `init`: a checkpoint the Trainer loads (weights only, a fresh Adam)
-    before it trains."""
+    before it trains.  `seed` draws the initial weights and the batch
+    order; the scenes stay those of seed 0 (the data is the protocol).  An
+    f32 run trains and detects in IEEE f32 (`ieee_f32`)."""
     from ..data.loader import Loader
     from ..data.synthetic import FixtureKitti, fixture_frames, fixture_scenes
     from ..models.factory import create_model
@@ -113,21 +116,28 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     cfg = protocol_config(data_dir, save_dir, input_hw, batch_size, lr,
                           epochs, compute_dtype)
     capture = {} if _capture is None else _capture
+    capture["fixture_digest"] = fixture_digest(scenes)
     timing = capture.setdefault("timing", {})
     launches = capture.setdefault("launches", {})
 
     with (dc.dcn_mode("windowed", radius) if radius >= 0
           else dc.dcn_mode("exact")), \
             (deterministic_mode() if deterministic
+             else contextlib.nullcontext()), \
+            (ieee_f32() if compute_dtype == "float32"
              else contextlib.nullcontext()):
         if ckpt:
             path = ckpt
         else:
             loader = Loader(FixtureKitti(cfg, scenes), cfg.batch_size,
                             shuffle=True, num_workers=2, drop_last=True,
-                            seed=0)
-            trainer = Trainer(cfg, create_model(cfg, seed=0),
-                              steps_per_epoch=len(loader), device=device)
+                            seed=seed)
+            model = create_model(cfg, seed=seed)
+            capture["initial_digest"] = array_digest(
+                {k: v.detach().float().numpy()
+                 for k, v in model.state_dict().items()})
+            trainer = Trainer(cfg, model, steps_per_epoch=len(loader),
+                              device=device)
             if init:
                 trainer.load(init)
             before = launch_counts()
@@ -179,17 +189,49 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                          inject=inject, verbose=verbose)
 
 
-def weights_digest(path) -> str:
-    """sha256 over a checkpoint's arrays (names, dtypes, shapes and bytes,
-    in name order): equal for the same weights, whatever the file's zip
-    metadata."""
+@contextlib.contextmanager
+def ieee_f32():
+    """TF32 off in matmuls and cuDNN convolutions (PyTorch's default has
+    it on in cuDNN), restored on exit: f32 as the JAX protocol runs it on
+    the CPU."""
+    import torch
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    prev = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, prev):
+            f.allow_tf32 = v
+
+
+def array_digest(arrays: dict) -> str:
+    """sha256 over named arrays (names, dtypes, shapes and bytes, in name
+    order)."""
     h = hashlib.sha256()
-    with np.load(path, allow_pickle=False) as z:
-        for name in sorted(z.files):
-            a = np.ascontiguousarray(z[name])
-            h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
-            h.update(a.tobytes())
+    for name in sorted(arrays):
+        a = np.ascontiguousarray(arrays[name])
+        h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
     return h.hexdigest()
+
+
+def weights_digest(path) -> str:
+    """`array_digest` of a checkpoint's arrays: equal for the same weights,
+    whatever the file's zip metadata."""
+    with np.load(path, allow_pickle=False) as z:
+        return array_digest({name: z[name] for name in z.files})
+
+
+def fixture_digest(scenes) -> str:
+    """`array_digest` of the protocol's scenes: images, label files and
+    calibration files."""
+    def arr(v):
+        return (np.frombuffer(v.encode(), np.uint8) if isinstance(v, str)
+                else np.asarray(v))
+    return array_digest({f"{sc['name']}/{k}": arr(sc[k]) for sc in scenes
+                         for k in ("left", "right", "label", "calib")})
 
 
 def run_overfit_variants(tmp, variants=("clean", "ry_flip", "depth_sign",

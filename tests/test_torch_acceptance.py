@@ -465,8 +465,270 @@ def test_rate_tool_lines(tiny_run, monkeypatch, capsys):
     assert lines[1]["z_cv"] == [0.9, 0.8]
     assert all(set(ln["depth_fit"]) == {"train_bn", "eval_bn"}
                for ln in lines)
+    assert all(ln["seed"] == 0 and ln["rep"] == 0 for ln in lines)
+    assert [c["seed"] for c in calls] == [0, 0, 0, 0]
+    met = {"runs": 1, "met_every_floor": 1, "misses": {}}
+    missed = {"runs": 1, "met_every_floor": 0,
+              "misses": {"z_cv median <= 0.5 m": 1}}
     assert json.loads(printed[-1][len("tally: "):]) == {
-        "scenes": 2, "runs": 4, "met_every_floor": 2}
+        "scenes": 2, "runs": 4, "met_every_floor": 2,
+        "by": {"windowed/float32": met, "windowed/bfloat16": missed,
+               "exact/float32": met, "exact/bfloat16": missed}}
+
+
+@pytest.mark.parametrize("text,seeds", [
+    ("0", [0]), ("0-15", list(range(16))), ("0,3,5-7", [0, 3, 5, 6, 7]),
+    ("4-4,2", [4, 2])])
+def test_parse_seeds(text, seeds):
+    assert rate.parse_seeds(text) == seeds
+
+
+def test_rate_tool_runs_each_seed(monkeypatch, tmp_path, capsys):
+    """`--seeds` runs the protocol once per seed and `--reps` times each,
+    every line carrying its seed; the tally counts the misses of each
+    floor by name."""
+    calls = []
+
+    def fake(tmp, _capture=None, **kw):
+        calls.append((kw["seed"], tmp))
+        _capture.update(checkpoint="unused")
+        if kw["seed"] == 5:
+            return _canned(n_objects=2, a=_set_err("ry", 0.5, 1))
+        return _canned(n_objects=2)
+
+    monkeypatch.setattr(acc, "run_overfit_variants", fake)
+    monkeypatch.setattr(rate, "depth_fit",
+                        lambda *a: {"train_bn": [0.1], "eval_bn": [0.2]})
+    assert rate.main(["--device", "cpu", "--seeds", "0-1,5", "--reps", "2",
+                      "--dcn", "windowed", "--dtypes", "float32",
+                      "--out", str(tmp_path)]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    lines = [json.loads(ln) for ln in printed if ln.startswith('{"mode"')]
+    assert [(ln["seed"], ln["rep"]) for ln in lines] == [
+        (0, 0), (0, 1), (1, 0), (1, 1), (5, 0), (5, 1)]
+    assert [c[0] for c in calls] == [0, 0, 1, 1, 5, 5]
+    assert len({c[1] for c in calls}) == 6
+    assert json.loads(printed[-1][len("tally: "):]) == {
+        "scenes": 2, "runs": 6, "met_every_floor": 4,
+        "by": {"windowed/float32": {
+            "runs": 6, "met_every_floor": 4,
+            "misses": {"ry worst <= 0.4 rad": 2}}}}
+
+
+def _lines(met, missed, floor="z_cv median <= 0.5 m"):
+    return ([{"floors_failed": []}] * met +
+            [{"floors_failed": [floor]}] * missed)
+
+
+@pytest.mark.parametrize("jax_runs,port_runs,p_low,only_port", [
+    # (a): at 6 of 6 for JAX the port needs 9 of 16
+    (_lines(6, 0), _lines(8, 8, "ry worst <= 0.4 rad"), True,
+     ["ry worst <= 0.4 rad"]),
+    (_lines(6, 0), _lines(9, 7), False, []),
+    # (b) alone: one floor in 8 of 16 port runs and in none of JAX's
+    (_lines(3, 3, "ry worst <= 0.4 rad"), _lines(8, 8), False,
+     ["z_cv median <= 0.5 m"]),
+    (_lines(3, 3), _lines(8, 8), False, []),
+])
+def test_decision_rule(jax_runs, port_runs, p_low, only_port):
+    """PERF.md's decision rule: a one-sided Fisher exact test on the
+    shares, and a floor the port misses in half its runs and JAX never."""
+    import torch_acceptance_share as share
+    got = share.decide(jax_runs, port_runs)
+    assert (got["p"] < 0.05) is p_low
+    assert got["floors_only_port"] == only_port
+    assert got["fault"] is (p_low or bool(only_port))
+
+
+def test_share_cli_runs_the_protocol(monkeypatch, capsys):
+    """tests/torch_acceptance_share.py runs each side at the protocol's own
+    settings (no knob changes the epochs or the size) and writes under
+    exp/share, relative to where it is run, one directory per side and
+    seed."""
+    import torch_acceptance_share as share
+    jax_calls, port_argv = [], []
+
+    def fake_jax(tmp, **kw):
+        jax_calls.append((tmp, kw))
+        return _canned(n_objects=2)
+
+    monkeypatch.setattr(share, "run_jax_protocol", fake_jax)
+    monkeypatch.setattr(share.rate, "main", lambda argv: port_argv.append(
+        argv) or 0)
+    assert share.main(["--seeds", "3-4"]) == 0
+    assert jax_calls == [
+        (os.path.join("exp", "share", "jax", str(s)),
+         dict(seed=s, verbose=False)) for s in (3, 4)]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert [(ln["side"], ln["mode"], ln["dtype"], ln["seed"])
+            for ln in lines] == [("jax", "windowed", "float32", s)
+                                 for s in (3, 4)]
+    assert share.main(["--side", "port", "--device", "cpu",
+                       "--seeds", "3-4"]) == 0
+    assert port_argv == [[
+        "--scenes", "2", "--seeds", "3-4", "--dcn", "windowed",
+        "--dtypes", "float32", "--out", os.path.join("exp", "share", "port"),
+        "--device", "cpu"]]
+    for knob in ("--epochs", "--input_h", "--input_w"):
+        with pytest.raises(SystemExit):
+            share.main([knob, "2"])
+
+
+def test_judge_counts_each_seeds_draws(tmp_path, capsys):
+    """`--judge` applies the rule to the windowed float32 lines of the two
+    logs and counts, per seed, the port's runs that met every floor."""
+    import torch_acceptance_share as share
+
+    def log(name, lines):
+        path = tmp_path / name
+        path.write_text("".join(json.dumps(ln) + "\n" for ln in lines)
+                        + "tally: {}\n")
+        return str(path)
+
+    def run(seed, failed=(), dtype="float32", **kw):
+        return dict(kw, mode="windowed", dtype=dtype, seed=seed,
+                    floors_failed=list(failed))
+
+    miss = ["z_cv median <= 0.5 m"]
+    jax_log = log("jax.log", [run(0, side="jax"), run(1, miss, side="jax"),
+                              run(2, side="jax", dtype="bfloat16")])
+    port_log = log("port.log", [run(1), run(0, miss), run(0), run(1, miss),
+                                run(1), run(0, dtype="bfloat16")])
+    assert share.main(["--judge", jax_log, port_log]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["jax"] == [1, 2] and got["port"] == [3, 5]
+    assert got["port_by_seed"] == {"0": [1, 2], "1": [2, 3]}
+    assert got["fault"] is False
+
+
+class _Stop(Exception):
+    """Raised by the stand-in Trainer once it has read its first epoch."""
+
+
+def _tf32():
+    import torch
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _first_epoch(monkeypatch, module, run):
+    """`run()` with `module.Trainer` replaced by one that records its
+    arguments, the first epoch's batches and the TF32 flags, then stops."""
+    seen = {}
+
+    class FirstEpoch:
+        def __init__(self, cfg, model, *args, **kw):
+            seen.update(cfg=cfg, model=model, args=args)
+
+        def train(self, epoch, loader):
+            seen["batches"] = [copy.deepcopy(b) for b in loader]
+            seen["tf32"] = _tf32()
+            raise _Stop
+
+    monkeypatch.setattr(module, "Trainer", FirstEpoch)
+    with pytest.raises(_Stop):
+        run()
+    return seen
+
+
+def _samples(batches):
+    """Each sample of `batches` as bytes, in batch order."""
+    return [b"".join(np.ascontiguousarray(b[k][i]).tobytes()
+                     for k in sorted(b))
+            for b in batches for i in range(len(next(iter(b.values()))))]
+
+
+def test_seed_draws_the_weights_and_the_order(monkeypatch, tmp_path):
+    """`run_overfit_ap(seed=)`: at seed 0 the model and the first epoch's
+    batches are create_model(cfg, seed=0)'s and Loader(seed=0)'s, as
+    before the seed existed; at seed 1 both change and the scenes do
+    not."""
+    import side_tpu_torch.runtime.trainer as ttrainer
+    from side_tpu_torch.models.factory import create_model
+    hw = (64, 192)
+    caps = {0: {}, 1: {}}
+    runs = {seed: _first_epoch(monkeypatch, ttrainer, lambda seed=seed:
+                               acc.run_overfit_ap(
+                                   str(tmp_path / f"s{seed}"), input_hw=hw,
+                                   device="cpu", seed=seed,
+                                   _capture=caps[seed]))
+            for seed in (0, 1)}
+    cfg = acc.protocol_config(str(tmp_path), str(tmp_path), hw, 2)
+    want_model = create_model(cfg, seed=0).state_dict()
+    want_batches = [copy.deepcopy(b) for b in Loader(
+        FixtureKitti(cfg, fixture_scenes(2, 2, seed=0)[:2]), 2,
+        shuffle=True, num_workers=2, drop_last=True, seed=0)]
+    states = {s: r["model"].state_dict() for s, r in runs.items()}
+    assert sorted(states[0]) == sorted(want_model)
+    assert all(torch_equal(states[0][k], want_model[k]) for k in want_model)
+    assert not all(torch_equal(states[1][k], want_model[k])
+                   for k in want_model)
+    assert _samples(runs[0]["batches"]) == _samples(want_batches)
+    assert _samples(runs[1]["batches"]) != _samples(want_batches)
+    assert sorted(_samples(runs[1]["batches"])) == \
+        sorted(_samples(want_batches))
+    assert caps[0]["fixture_digest"] == caps[1]["fixture_digest"]
+    assert caps[0]["initial_digest"] != caps[1]["initial_digest"]
+
+
+def torch_equal(a, b):
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def test_jax_runner_copy_is_the_protocol(monkeypatch, tmp_path):
+    """tests/torch_acceptance_share.py's copy of the JAX protocol at seed
+    0 builds test_overfit_ap.run_overfit_ap's Config (but for its paths),
+    initial variables and first-epoch batches, read without training."""
+    from dataclasses import replace
+    import jax
+    import side_tpu.runtime.trainer as jtrainer
+    import test_overfit_ap as jtest
+    import torch_acceptance_share as share
+    hw = (64, 192)
+    want = _first_epoch(monkeypatch, jtrainer, lambda: jtest.run_overfit_ap(
+        str(tmp_path / "test"), input_hw=hw))
+    got = _first_epoch(monkeypatch, jtrainer, lambda: share.run_jax_protocol(
+        str(tmp_path / "share"), seed=0, input_hw=hw))
+    assert replace(got["cfg"], data_dir="", exp_dir="") == \
+        replace(want["cfg"], data_dir="", exp_dir="")
+    assert got["cfg"].data_dir != want["cfg"].data_dir
+    (gv,), (wv,) = got["args"], want["args"]
+    assert jax.tree.structure(gv) == jax.tree.structure(wv)
+    for a, b in zip(jax.tree.leaves(gv), jax.tree.leaves(wv)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert _samples(got["batches"]) == _samples(want["batches"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_f32_runs_without_tf32(dtype, tiny_run, monkeypatch, tmp_path):
+    """An f32 run trains and detects with TF32 off in matmuls and cuDNN
+    and gives the flags back as they were; a bf16 run leaves them
+    alone."""
+    import torch
+    import side_tpu_torch.runtime.trainer as ttrainer
+    import side_tpu_torch.val as tval
+    before = (True, False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", before[0])
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", before[1])
+    during = (False, False) if dtype == "float32" else before
+    kw = dict(input_hw=(64, 192), device="cpu", compute_dtype=dtype)
+    train = _first_epoch(monkeypatch, ttrainer, lambda: acc.run_overfit_ap(
+        str(tmp_path / "train"), **kw))
+    assert train["tf32"] == during
+    assert _tf32() == before
+    seen = []
+
+    def run_pass(*args, **kwargs):
+        seen.append(_tf32())
+        raise _Stop
+
+    monkeypatch.setattr(tval, "run_pass", run_pass)
+    with pytest.raises(_Stop):
+        acc.run_overfit_ap(str(tmp_path / "detect"), ckpt=str(
+            tiny_run[0] / "exp" / "model_last.npz"), **kw)
+    assert seen == [during]
+    assert _tf32() == before
 
 
 # ----------------------------------------------------------------- slow

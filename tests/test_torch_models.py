@@ -18,7 +18,10 @@ Tolerances:
   relative, updated running statistics 1e-4 of their largest value,
   gradients 0.3 of their tensor's largest value and 3e-2 in the median
   (batch statistics over few samples amplify f32 sum-order noise);
-- checkpoints: every array equal.
+- checkpoints: every array equal;
+- `lecun_init_` against flax's `lecun_normal`, 100,000 draws each: the
+  same std within 1 %, and no |w| beyond 2.28 target stds (the draw is
+  truncated at 2 / 0.8796 = 2.274).
 """
 
 import unittest.mock as um
@@ -265,3 +268,23 @@ def test_resdcn_shapes_take_the_tensor_core_plans(shape, batch):
     for plan in (fp, dp, cp):
         assert 0 < plan["smem_bytes"] <= SMEM_PER_BLOCK
         assert plan["blocks"] > 0
+
+
+def test_lecun_init_draws_flax_lecun_normal():
+    """`lecun_init_` (ConvTranspose3d of HourglassVolume, the voxel net's
+    strAM_2D, every Dense) draws flax's `lecun_normal`: a normal truncated
+    at +-2 standard units with its variance corrected to 1/fan_in."""
+    import flax.linen as fnn
+    from side_tpu_torch.models.dla import lecun_init_
+    fan_in, fan_out = 1000, 100
+    sigma = fan_in ** -0.5
+    flax_w = np.asarray(fnn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), (fan_in, fan_out), jnp.float32))
+    port_w = torch.empty(fan_out, fan_in)
+    lecun_init_(port_w, torch.Generator().manual_seed(0))
+    port_w = port_w.numpy()
+    assert flax_w.size == port_w.size == 100_000
+    assert abs(port_w.std() / flax_w.std() - 1) < 1e-2
+    assert abs(port_w.std() / sigma - 1) < 1e-2
+    for w in (flax_w, port_w):
+        assert np.abs(w).max() / sigma <= 2.28
