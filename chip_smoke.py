@@ -182,6 +182,22 @@ Phases, each of which must pass:
      kernel, K2 and K3 a step, all on the f32 (CUDA-core) route.  Each
      seed's failed floors are printed, not held: a floor is a share over
      seeds (PERF.md, "Acceptance over seeds"), not a per-run check.
+ 16. the top-level entry points: side_tpu_torch.graft_entry.entry()'s
+     function at full width (384x1280, bf16, K=100; seeded init): 16
+     forward launches a call, all on the tensor-core route, nothing else,
+     finite rows of the decode's shapes; the host syncs of one chained
+     serving iteration at B=2 under torch.cuda.set_sync_debug_mode("warn"),
+     counted and printed; side_tpu_torch.bench's main at its defaults (its
+     JSON line printed), with spies that count the calls of entry()'s
+     function, the Trainer's steps and the launches made before the
+     first training step: 16 forward launches per serving call and 16 of
+     each DCN kernel per training step, each the launches of its part
+     over its calls, all on the tensor-core route; the calls match the
+     loop lengths; the `--reference_exact` Detector on phase
+     11's R = 1 checkpoint stays exact (forward launches at radius -1
+     only); dryrun_multichip(2) on the card (2 gloo ranks on cuda:0, f32,
+     TF32 off): passes, and each rank launches the forward kernel, K2 and
+     K3 16 times.
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -2583,6 +2599,200 @@ def phase_acceptance_seeds() -> dict:
     return out
 
 
+# ------------------------------- phase 16: the top-level entry points
+def _bench_counts(iters: int) -> dict:
+    """Serving calls and training steps of one `bench.main` at its
+    defaults: a warm-up of the short loop, then each loop length twice;
+    2 warm-up steps, then each step count twice."""
+    from side_tpu_torch import bench
+    n_small = max(2, iters // 10)
+    return {"serving_calls": 3 * n_small + 2 * iters,
+            "training_steps": 2 + 2 * sum(bench.TRAIN_STEPS)}
+
+
+# launches per serving call and per training step of each kernel in
+# `bench.main` at its defaults (bf16, full width)
+BENCH_PER_CALL = {"dcn_fwd": (16, 16), "dcn_bwd_dx": (0, 16),
+                  "dcn_bwd_dcoord": (0, 16), "dcn_fwd_om": (0, 0)}
+
+
+def _bench_spied(kernels) -> tuple:
+    """`bench.main([])`'s result line, and what spies counted in that run:
+    the calls of the served function, the Trainer's steps, every kernel's
+    launches at the first training figure's start (the serving loop's)
+    and at the end, and the seconds."""
+    import io
+    from side_tpu_torch import bench
+    spied = {"serving_calls": 0, "training_steps": 0}
+    real_serving, real_trainer = bench.serving_pairs_per_s, bench.Trainer
+    real_train = bench.train_pairs_per_s
+
+    def serving_pairs_per_s(fn, *args, **kw):
+        def counted(model, batch):
+            spied["serving_calls"] += 1
+            return fn(model, batch)
+        return real_serving(counted, *args, **kw)
+
+    class Trainer(real_trainer):
+        def train_step(self, batch):
+            spied["training_steps"] += 1
+            return super().train_step(batch)
+
+    def train_pairs_per_s(*args, **kw):
+        spied.setdefault("at_train", _counts(kernels))
+        return real_train(*args, **kw)
+
+    reset_counts(kernels)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    bench.serving_pairs_per_s, bench.Trainer = serving_pairs_per_s, Trainer
+    bench.train_pairs_per_s = train_pairs_per_s
+    try:
+        with contextlib.redirect_stdout(buf):
+            check(bench.main([]) == 0, "bench.main failed")
+    finally:
+        bench.serving_pairs_per_s, bench.Trainer = real_serving, real_trainer
+        bench.train_pairs_per_s = real_train
+    spied["seconds"] = time.perf_counter() - t
+    spied["counts"] = _counts(kernels)
+    check("at_train" in spied, "bench.main took no training figure")
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(line)
+    return json.loads(line), spied
+
+
+def _host_syncs(fn, model, batch) -> dict:
+    """The synchronising CUDA calls of one chained serving iteration, as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them."""
+    import warnings
+    from side_tpu_torch import bench
+    bench.chained(fn, model, batch, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bench.chained(fn, model, batch, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    return {"count": len(where), "where": where}
+
+
+def _reference_exact_on(trained_ckpt: str) -> dict:
+    """Phase 3's `--reference_exact` rule on phase 11's R = 1 checkpoint:
+    the Detector keeps exact mode (the JAX package's rule) and its forward
+    launches only at radius -1."""
+    from dataclasses import replace
+    from side_tpu_torch.data.synthetic import fixture_frames, fixture_scenes
+    from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.dcn_cuda import KERNELS, launch_counts
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime import checkpoint
+    from side_tpu_torch.tools import acceptance_16 as acc
+    check(checkpoint.load_checkpoint(trained_ckpt).get("dcn_radius") == 1,
+          "phase 11's checkpoint is not tagged R = 1")
+    pinned = os.environ.pop("SIDE_TPU_TORCH_DCN", None)
+    cfg = acc.protocol_config("", "", batch_size=TRAINED_RUN[1],
+                              compute_dtype="bfloat16")
+    _, images, calib = fixture_frames(
+        fixture_scenes(TRAINED_RUN[0], 2, seed=0)[:1])[0]
+    try:
+        with dc.dcn_mode("windowed", 1):
+            det = Detector(replace(cfg, load_model=trained_ckpt,
+                                   reference_exact=True))
+            mode = dc.dcn_radius_tag()
+            reset_counts(KERNELS)
+            det.run(images, calib=calib)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+    finally:
+        if pinned is not None:
+            os.environ["SIDE_TPU_TORCH_DCN"] = pinned
+    check(mode == -1, f"--reference_exact on an R = 1 checkpoint runs at "
+          f"radius {mode}, not exact")
+    _only_at(launches, -1, ("dcn_fwd",), "--reference_exact detection")
+    return {"radius": mode, "launches": {
+        k: v for k, v in launches.items() if k.startswith("dcn_fwd") and v}}
+
+
+def phase_entry_points(trained_ckpt: str) -> dict:
+    """Phase 16: graft_entry.entry()'s function at full width, the host
+    syncs of one chained iteration, `bench.main` at its defaults, the
+    `--reference_exact` Detector on phase 11's checkpoint and
+    `dryrun_multichip(2)` on the card."""
+    from side_tpu_torch import bench, graft_entry
+    from side_tpu_torch.ops.dcn_cuda import KERNELS
+    t_phase = time.perf_counter()
+    out = {}
+
+    fn, (model, pair) = graft_entry.entry()
+    reset_counts(KERNELS)
+    rows = fn(model, pair)
+    torch.cuda.synchronize()
+    counts = _counts(KERNELS)
+    check(counts["dcn_fwd"] == 16 and counts["dcn_fwd_tensor_core"] == 16
+          and sum(counts[k] for k in KERNELS) == 16,
+          f"entry()'s fn: launches {counts}, expected 16 dcn_fwd on the "
+          f"tensor-core route and nothing else")
+    check([tuple(r.shape) for r in rows] == [(1, 100, 6), (1, 100, 6),
+                                             (1, 100, 10)],
+          f"entry()'s fn: shapes {[tuple(r.shape) for r in rows]}")
+    check(all(bool(torch.isfinite(r).all()) for r in rows),
+          "entry()'s fn: non-finite rows")
+    out["entry_launches"] = counts
+    out["syncs"] = _host_syncs(fn, model, bench.repeat_pairs(pair, 2))
+    log(f"[entry] fn: {json.dumps(counts)}; top score "
+        f"{rows[0][0, 0, 4].item():.4f}; host syncs of one chained "
+        f"iteration (B=2): {out['syncs']['count']} at "
+        f"{json.dumps(out['syncs']['where'])}")
+    del fn, model, pair, rows
+    torch.cuda.empty_cache()
+
+    iters = int(os.environ.get("BENCH_ITERS", "20"))
+    out["bench"], spied = _bench_spied(KERNELS)
+    counts, at_train = spied["counts"], spied["at_train"]
+    calls = {k: spied[k] for k in ("serving_calls", "training_steps")}
+    check(calls == _bench_counts(iters),
+          f"bench: {calls}, expected {_bench_counts(iters)}")
+    served, steps = calls["serving_calls"], calls["training_steps"]
+    per_call = {k: {"per_serving_call": at_train[k] / served,
+                    "per_training_step": (counts[k] - at_train[k]) / steps}
+                for k in BENCH_PER_CALL}
+    check(all(per_call[k] == {"per_serving_call": a, "per_training_step": b}
+              and counts.get(f"{k}_tensor_core", 0) == counts[k]
+              for k, (a, b) in BENCH_PER_CALL.items()),
+          f"bench: launches per serving call and training step {per_call} "
+          f"(totals {counts}), expected {BENCH_PER_CALL}, all on the "
+          f"tensor-core route")
+    out["bench_s"] = spied["seconds"]
+    out["bench_launches"] = {**calls, **counts, "per_call": per_call}
+    log(f"[bench] {served} serving calls, {steps} training steps "
+        f"(counted): launches {json.dumps(counts)}, of them before the "
+        f"first training step {json.dumps(at_train)}; per call and step "
+        f"{json.dumps(per_call)}; {out['bench_s']:.1f} s")
+
+    out["reference_exact"] = _reference_exact_on(trained_ckpt)
+    log(f"[reference_exact] phase 11's R = 1 checkpoint under the flag: "
+        f"radius {out['reference_exact']['radius']}, launches "
+        f"{json.dumps(out['reference_exact']['launches'])}")
+
+    dry = graft_entry.dryrun_multichip(2)
+    for r in dry["ranks"]:
+        check(r["launches"] == {k: 16 for k in ("dcn_fwd", "dcn_bwd_dx",
+                                                 "dcn_bwd_dcoord")},
+              f"dryrun rank on {r['device']}: launches {r['launches']}")
+    out["dryrun"] = {k: dry[k] for k in ("loss", "loss_one", "rel",
+                                         "seconds")}
+    out["dryrun"]["ranks"] = dry["ranks"]
+    log(f"[dryrun] {json.dumps(out['dryrun'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 16] {out['phase_s']:.1f} s")
+    return out
+
+
 def _shape(row) -> tuple:
     return (row["cin"], row["h"], row["w"], row["cout"])
 
@@ -2631,7 +2841,8 @@ def main() -> int:
         zoo = phase_model_zoo()
         dp = phase_data_parallel()
         p14 = phase_exact_audit_recipe(trained["checkpoint"])
-    p15 = phase_acceptance_seeds()
+        p15 = phase_acceptance_seeds()
+        p16 = phase_entry_points(trained["checkpoint"])
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -2903,6 +3114,25 @@ def main() -> int:
                 f"seed {seed}": {part: r["launches"][part][entry["name"]]
                                  for part in ("train", "detect")}
                 for seed, r in p15["runs"].items()}
+    # phase 16: graft_entry.entry()'s function, bench.main, the dry run
+    for entry in entries:
+        name = entry["name"]
+        if name not in DP_KERNELS:
+            continue
+        bl = p16["bench_launches"]
+        entry["launches_bench"] = {
+            "path": f"python -m side_tpu_torch.bench at its defaults: "
+                    f"{bl['serving_calls']} calls of entry()'s function "
+                    f"(B=2 pairs), {bl['training_steps']} training steps "
+                    f"(2 pairs, bf16)",
+            "total": bl[name], "tensor_core": bl[f"{name}_tensor_core"],
+            **bl["per_call"][name]}
+        entry["launches_dryrun_per_rank"] = [
+            r["launches"][name] for r in p16["dryrun"]["ranks"]]
+        if name == "dcn_fwd":
+            entry["launches_entry_fn"] = p16["entry_launches"][name]
+            entry["launches_reference_exact"] = \
+                p16["reference_exact"]["launches"]
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")
@@ -2956,6 +3186,12 @@ def main() -> int:
     log(f"[summary] phase 15: floors failed by seed "
         f"{json.dumps(p15['floors_failed'])}; phase "
         f"{p15['phase_s']:.1f} s; script "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[summary] phase 16: bench {json.dumps(p16['bench'])} "
+        f"({p16['bench_s']:.1f} s); host syncs of one chained iteration "
+        f"{p16['syncs']['count']}; dryrun_multichip(2) "
+        f"{p16['dryrun']['seconds']:.1f} s, rel diff "
+        f"{p16['dryrun']['rel']:.2e}; phase {p16['phase_s']:.1f} s; script "
         f"{time.perf_counter() - t_start:.1f} s")
     print(power_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 A copy of side_tpu/config.py (the port imports nothing of the JAX package):
 the same dataclass, constants, defaults and command-line flags, so one run
 command configures either package.  One difference: `--reference_exact`
-sets the `reference_exact` field, and the Detector switches the DCN to its
-exact (unbounded) mode from it; parsing the flags imports no DCN module.
+sets the `reference_exact` field, and the training entry point and the
+Detector switch the DCN to its exact (unbounded) mode from it; parsing the
+flags imports no DCN module.
 """
 
 from __future__ import annotations

@@ -105,8 +105,10 @@ def bbox_decode(heat, wh, reg, K: int = 100):
 
     center = torch.cat([xs, ys], dim=2)
     center_right = torch.cat([xs_right, ys], dim=2)
-    half = 0.5 * wh[:, :, [0, 2]]
-    half_right = 0.5 * wh[:, :, [1, 2]]
+    # columns (w, h) and (w_right, h) as slices: an index list would be
+    # copied to the card, and the host would wait for the stream
+    half = 0.5 * wh[:, :, 0::2]
+    half_right = 0.5 * wh[:, :, 1:3]
     bbox = torch.cat([center - half, center + half], dim=2)
     bbox_right = torch.cat([center_right - half_right,
                             center_right + half_right], dim=2)
@@ -125,8 +127,8 @@ def boxes_from_targets(ind_float, wh, reg, output_w: int,
     ys = ys + reg[:, :, 2]
     center = torch.stack([xs, ys], dim=2)
     center_right = torch.stack([xs_right, ys], dim=2)
-    half = 0.5 * wh[:, :, [0, 2]] * wh_scale
-    half_right = 0.5 * wh[:, :, [1, 2]] * wh_scale
+    half = 0.5 * wh[:, :, 0::2] * wh_scale
+    half_right = 0.5 * wh[:, :, 1:3] * wh_scale
     bbox = torch.cat([center - half, center + half], dim=2)
     bbox_right = torch.cat([center_right - half_right,
                             center_right + half_right], dim=2)

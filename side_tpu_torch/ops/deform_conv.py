@@ -103,6 +103,15 @@ def dcn_fused(on: bool = True):
         set_dcn_fused(prev)
 
 
+def apply_reference_exact() -> None:
+    """The `--reference_exact` rule (side_tpu/config.py's): exact mode for
+    the process, unless SIDE_TPU_TORCH_DCN pins a mode.  The training
+    entry point and the Detector call it; `Config.cli` imports no DCN
+    module and only sets the field."""
+    if os.environ.get("SIDE_TPU_TORCH_DCN") is None:
+        set_dcn_mode("exact")
+
+
 def dcn_radius_tag() -> int:
     """The offset bound in force: R when windowed, -1 when exact (the
     checkpoint's `meta::dcn_radius` convention)."""

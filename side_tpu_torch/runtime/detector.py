@@ -21,6 +21,7 @@ no CUDA device and no explicit device it raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -51,6 +52,22 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+@contextlib.contextmanager
+def ieee_f32():
+    """TF32 off in matmuls and cuDNN convolutions (PyTorch's default has
+    it on in cuDNN), restored on exit: f32 as the JAX package runs it on
+    the CPU."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    prev = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, prev):
+            f.allow_tf32 = v
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -73,16 +90,20 @@ class Detector:
                  keep_dcn_mode: bool = False):
         """`keep_dcn_mode`: load `cfg.load_model` keeping the DCN mode in
         force, with a warning where the checkpoint's radius differs (the
-        JAX package's rule), instead of switching to the checkpoint's."""
+        JAX package's rule), instead of switching to the checkpoint's.
+        `cfg.reference_exact` sets exact mode (unless SIDE_TPU_TORCH_DCN
+        pins one) and keeps the mode in force on load, as the JAX package
+        does."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.reference_exact and os.environ.get("SIDE_TPU_TORCH_DCN") is None:
-            dc.set_dcn_mode("exact")
+        if cfg.reference_exact:
+            dc.apply_reference_exact()
         model = create_model(cfg, seed=seed)
         check_stereo_model(model, cfg)
         if cfg.load_model:
             weights.load_npz(model, cfg.load_model,
-                             keep_dcn_mode=keep_dcn_mode)
+                             keep_dcn_mode=keep_dcn_mode
+                             or cfg.reference_exact)
         self.model = model.to(self.device).eval()
         self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
                                  device=self.device)

@@ -99,7 +99,7 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
     from ..models.factory import create_model
     from ..ops.dcn_cuda import (deterministic_mode, launch_counts,
                                 launches_since)
-    from ..runtime.detector import Detector
+    from ..runtime.detector import Detector, ieee_f32
     from ..runtime.trainer import Trainer
     from .. import val
 
@@ -187,23 +187,6 @@ def run_overfit_ap(tmp, epochs=160, lr=1e-3, input_hw=(128, 384),
                    save_dir=save_dir, checkpoint=path)
     return save_and_eval(results, results_raw, base, save_dir,
                          inject=inject, verbose=verbose)
-
-
-@contextlib.contextmanager
-def ieee_f32():
-    """TF32 off in matmuls and cuDNN convolutions (PyTorch's default has
-    it on in cuDNN), restored on exit: f32 as the JAX protocol runs it on
-    the CPU."""
-    import torch
-    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
-    prev = [f.allow_tf32 for f in flags]
-    for f in flags:
-        f.allow_tf32 = False
-    try:
-        yield
-    finally:
-        for f, v in zip(flags, prev):
-            f.allow_tf32 = v
 
 
 def array_digest(arrays: dict) -> str:

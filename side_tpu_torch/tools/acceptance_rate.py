@@ -129,6 +129,7 @@ def run_one(out_dir, scenes, mode, dtype, seed, rep=0, device=None,
     checkpoint: the run's JSON line.  `_capture` gets what
     `run_overfit_ap` captures."""
     from ..data.synthetic import fixture_scenes
+    from ..runtime.detector import ieee_f32
     batch, epochs = PROTOCOLS[scenes]
     radius = 1 if mode == "windowed" else -1
     tmp = os.path.join(out_dir, f"{mode}_{dtype}_{seed}_{rep}")
@@ -143,7 +144,7 @@ def run_one(out_dir, scenes, mode, dtype, seed, rep=0, device=None,
                               compute_dtype=dtype)
     with (dc.dcn_mode("windowed", radius) if radius >= 0
           else dc.dcn_mode("exact")), \
-            (acc.ieee_f32() if dtype == "float32"
+            (ieee_f32() if dtype == "float32"
              else contextlib.nullcontext()):
         fit = depth_fit(cfg, fixture_scenes(scenes, 2, seed=0)[:scenes],
                         cap["checkpoint"], device)

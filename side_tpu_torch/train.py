@@ -22,6 +22,10 @@ CUDA_VISIBLE_DEVICES); the process is rank i on `--device` (default
 `cuda`), its local batch is `batch_size // P` and its loader seed
 `seed + 13 * i`, as in tools/train.py.
 
+`--reference_exact` trains in exact DCN mode unless SIDE_TPU_TORCH_DCN
+pins one: `train`, which every rank runs, applies it, and the checkpoints
+carry `meta::dcn_radius` -1.
+
 Rank 0 alone writes the log files and checkpoints.  The validation inside
 the loop reports losses; for KITTI result files and AP run
 `python -m side_tpu_torch.val` on a checkpoint.
@@ -43,6 +47,7 @@ from .data.dataset import StereoKitti
 from .data.loader import Loader
 from .demo import _pop_option
 from .models.factory import create_model
+from .ops import deform_conv as dc
 from .parallel.mesh import (Mesh, ShardedLoader, init_distributed, make_mesh,
                             shutdown)
 from .runtime.logger import Logger
@@ -95,6 +100,8 @@ def train(cfg: Config, device, mesh: Optional[Mesh] = None,
     torch.manual_seed(cfg.seed)
     train_loader, val_loader = rank_loaders(cfg, rank_mesh, distributed)
 
+    if cfg.reference_exact:
+        dc.apply_reference_exact()
     if chief:
         print("Creating model...")
     model = create_model(cfg, seed=cfg.seed)

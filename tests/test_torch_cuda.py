@@ -1034,3 +1034,32 @@ def test_synced_folded_batchnorm_two_gloo_ranks_on_card(card, tmp_path):
     for key in ("running_mean", "running_var"):
         assert torch.equal(got[0][key], got[1][key]), key
         assert torch_dp.rel_err(got[0][key], want[key]) <= 1e-6, key
+
+
+def test_graft_entry_fn_on_card_matches_cpu(card, monkeypatch):
+    """graft_entry.entry()'s function at 128x256 f32 (`_build` patched) on
+    the card against the same function on the CPU, same weights
+    (runtime/synthetic.py:interior_init at seed 11, the heatmap head's
+    last conv x 20: adjacent scores 1.8e-5 apart at least on the CPU) and
+    batch: 16 forward launches, dets, dets_r and info to atol 1e-3 / rtol
+    1e-4 (tests/test_torch_graft_entry.py's bound), with adjacent scores
+    more than 1e-5 apart so that the rows keep their order."""
+    import copy
+    from side_tpu_torch import graft_entry
+    from side_tpu_torch.runtime.synthetic import interior_init
+    build = graft_entry._build
+    monkeypatch.setattr(graft_entry, "_build", lambda kw, dtype, device: build(
+        dict(kw, input_h=128, input_w=256), torch.float32, device))
+    fn, (model, batch) = graft_entry.entry()
+    interior_init(model, seed=11)
+    with torch.no_grad():
+        model.hm.Conv_1.weight.mul_(20.0)
+    cpu_model = copy.deepcopy(model).cpu()
+    before = DCN_FWD.launches
+    got = [a.cpu().numpy() for a in fn(model, batch)]
+    assert DCN_FWD.launches - before == 16
+    want = [a.numpy() for a in fn(cpu_model, {k: v.cpu()
+                                              for k, v in batch.items()})]
+    assert -np.diff(want[0][0, :, 4]).max() > 1e-5
+    for name, g, w in zip(("dets", "dets_r", "info"), got, want):
+        np.testing.assert_allclose(g, w, atol=1e-3, rtol=1e-4, err_msg=name)

@@ -184,3 +184,20 @@ def test_bbox_decode_matches(tie):
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("wh_scale", [1.0, 2.5])
+def test_boxes_from_targets_matches(wh_scale):
+    rng = np.random.RandomState(7)
+    B, K, W = 2, 6, 64
+    ind = rng.randint(0, 32 * W, (B, K)).astype(np.float32)
+    wh = (rng.rand(B, K, 3) * 30).astype(np.float32)
+    reg = rng.rand(B, K, 3).astype(np.float32)
+    want = jdec.boxes_from_targets(jnp.asarray(ind), jnp.asarray(wh),
+                                   jnp.asarray(reg), W, wh_scale)
+    got = tdec.boxes_from_targets(torch.from_numpy(ind), torch.from_numpy(wh),
+                                  torch.from_numpy(reg), W, wh_scale)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
