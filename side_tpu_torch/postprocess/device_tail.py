@@ -6,6 +6,11 @@ From the decode outputs (still on the device), the raw uint8 frame and a
 few calib/affine scalars: affine unwarp, disparity or cost-volume depth,
 the 3-DoF box solve, dense photometric alignment on the 2x-upsampled frame
 and the re-solve.  The host fetches one (K, 13) array.
+
+Under torch.profiler a tail shows as the span `tail`, holding `tail.prep`
+(calibration packs, padding and uploads), `tail.solve` (the box solve),
+`tail.align` (up-sampling and dense alignment) and `tail.resolve` (the
+re-solve at the aligned depths); see runtime/spans.py.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..config import Config
 from ..data import geometry as G
 from ..data.kitti import calib_from_list
+from ..runtime.spans import span
 from . import box_solver as BS
 from . import dense_align as DA
 
@@ -94,46 +100,51 @@ def _tail_batch(dets, dets_r, info, img_left, img_right, trans_inv_out,
     p2_mat = torch.stack([torch.cat([p2_00, zero, cx, p2_03], 1),
                           torch.cat([zero, p2_11, cy, p2_13], 1),
                           torch.cat([zero, zero, one, p2_23], 1)], dim=1)
-    consts = BS.build_consts(
-        torch.cat([im_w, im_h], 1)[:, None].expand(B, K, 2).reshape(-1, 2),
-        p2_mat[:, None].expand(B, K, 3, 4).reshape(-1, 3, 4), rows_of(bl),
-        flat(alpha), flat(dim_whl), flat(box_left), flat(box_right),
-        flat(kpts), use_right=False, grid=grid)
-    states = BS.solve_x_y_theta(consts, flat(depth)).reshape(B, K, 3)
-    solved_ok = torch.isfinite(states).all(dim=-1)
-    x = torch.where(solved_ok, states[..., 0] - x_shift, x)
-    y = torch.where(solved_ok, states[..., 1] - y_shift, y)
-    z_out = torch.where(solved_ok, depth - z_shift, z)
-    theta = torch.where(solved_ok, states[..., 2] - math.pi / 2, theta)
+    with span("tail.solve"):
+        consts = BS.build_consts(
+            torch.cat([im_w, im_h], 1)[:, None].expand(B, K, 2).reshape(
+                -1, 2),
+            p2_mat[:, None].expand(B, K, 3, 4).reshape(-1, 3, 4),
+            rows_of(bl), flat(alpha), flat(dim_whl), flat(box_left),
+            flat(box_right), flat(kpts), use_right=False, grid=grid)
+        states = BS.solve_x_y_theta(consts, flat(depth)).reshape(B, K, 3)
+        solved_ok = torch.isfinite(states).all(dim=-1)
+        x = torch.where(solved_ok, states[..., 0] - x_shift, x)
+        y = torch.where(solved_ok, states[..., 1] - y_shift, y)
+        z_out = torch.where(solved_ok, depth - z_shift, z)
+        theta = torch.where(solved_ok, states[..., 2] - math.pi / 2, theta)
 
     if run_align:
-        im_l2 = DA.upsample2x((img_left.float() / 255.0 - mean) / std)
-        im_r2 = DA.upsample2x((img_right.float() / 255.0 - mean) / std)
-        scale = 2.0
-        keep = scores > 0.0
-        poses = torch.stack([x + x_shift, y + y_shift, z_out + z_shift,
-                             dim[..., 1], dim[..., 0], dim[..., 2],
-                             theta + math.pi / 2], dim=-1)
-        # align the top align_topk score-ordered slots of each frame; the
-        # rest keep their solved depth (the status = 0 fallback)
-        A = K if align_topk <= 0 else min(align_topk, K)
-        frame = torch.arange(B, device=dets.device).repeat_interleave(A)
-        status_a, best_dis_a = DA.align_depths(
-            im_l2, im_r2, rows_of(f, A) * scale, rows_of(bl, A),
-            rows_of(cx, A) * scale, rows_of(cy, A) * scale,
-            flat(box_left, A) * scale, flat(kpts[..., :2], A) * scale,
-            flat(poses, A), flat(keep, A), frame=frame)
-        status = torch.nn.functional.pad(status_a.reshape(B, A), (0, K - A))
-        best_dis = torch.nn.functional.pad(best_dis_a.reshape(B, A),
-                                           (0, K - A), value=1.0)
-        z_aligned = f * bl / torch.clamp(best_dis, min=1e-3)
-        states2 = BS.solve_x_y_theta(consts, flat(z_aligned)
-                                     ).reshape(B, K, 3)
-        ok2 = (status > 0) & torch.isfinite(states2).all(dim=-1)
-        x = torch.where(ok2, states2[..., 0] - x_shift, x)
-        y = torch.where(ok2, states2[..., 1] - y_shift, y)
-        z_out = torch.where(ok2, z_aligned - z_shift, z_out)
-        theta = torch.where(ok2, states2[..., 2] - math.pi / 2, theta)
+        with span("tail.align"):
+            im_l2 = DA.upsample2x((img_left.float() / 255.0 - mean) / std)
+            im_r2 = DA.upsample2x((img_right.float() / 255.0 - mean) / std)
+            scale = 2.0
+            keep = scores > 0.0
+            poses = torch.stack([x + x_shift, y + y_shift, z_out + z_shift,
+                                 dim[..., 1], dim[..., 0], dim[..., 2],
+                                 theta + math.pi / 2], dim=-1)
+            # align the top align_topk score-ordered slots of each frame;
+            # the rest keep their solved depth (the status = 0 fallback)
+            A = K if align_topk <= 0 else min(align_topk, K)
+            frame = torch.arange(B, device=dets.device).repeat_interleave(A)
+            status_a, best_dis_a = DA.align_depths(
+                im_l2, im_r2, rows_of(f, A) * scale, rows_of(bl, A),
+                rows_of(cx, A) * scale, rows_of(cy, A) * scale,
+                flat(box_left, A) * scale, flat(kpts[..., :2], A) * scale,
+                flat(poses, A), flat(keep, A), frame=frame)
+            status = torch.nn.functional.pad(status_a.reshape(B, A),
+                                             (0, K - A))
+            best_dis = torch.nn.functional.pad(best_dis_a.reshape(B, A),
+                                               (0, K - A), value=1.0)
+        with span("tail.resolve"):
+            z_aligned = f * bl / torch.clamp(best_dis, min=1e-3)
+            states2 = BS.solve_x_y_theta(consts, flat(z_aligned)
+                                         ).reshape(B, K, 3)
+            ok2 = (status > 0) & torch.isfinite(states2).all(dim=-1)
+            x = torch.where(ok2, states2[..., 0] - x_shift, x)
+            y = torch.where(ok2, states2[..., 1] - y_shift, y)
+            z_out = torch.where(ok2, z_aligned - z_shift, z_out)
+            theta = torch.where(ok2, states2[..., 2] - math.pi / 2, theta)
 
     rows = torch.cat([alpha[..., None], box_left, dim, x[..., None],
                       y[..., None], z_out[..., None], theta[..., None],
@@ -180,19 +191,22 @@ def run_tail(dets, dets_r, info, img_left_u8, img_right_u8, meta: Dict,
     (K, 9|10) tensors, img_* (H, W, 3) uint8 numpy frames.  Returns
     (rows (K, 13), classes (K,)) on the device, not synchronised."""
     dev = dets.device
-    trans_inv_out, pack = calib_pack_from_meta(
-        meta, cfg, float(img_left_u8.shape[1]), float(img_left_u8.shape[0]))
-    mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
+    with span("tail"):
+        with span("tail.prep"):
+            trans_inv_out, pack = calib_pack_from_meta(
+                meta, cfg, float(img_left_u8.shape[1]),
+                float(img_left_u8.shape[0]))
+            mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
+            std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
+            ups = [_upload(a, dev) for a in (img_left_u8, img_right_u8,
+                                              trans_inv_out, pack)]
+        return _tail_one(dets, dets_r, info, *ups, mean, std, grid=cfg.grid,
+                         run_align=run_align, cost_volume=cfg.cost_volume,
+                         align_topk=cfg.align_topk)
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            dev, non_blocking=True)
 
-    return _tail_one(dets, dets_r, info, up(img_left_u8), up(img_right_u8),
-                     up(trans_inv_out), up(pack), mean, std, grid=cfg.grid,
-                     run_align=run_align, cost_volume=cfg.cost_volume,
-                     align_topk=cfg.align_topk)
+def _upload(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
 
 
 def _pad_stack(imgs, H: int, W: int) -> np.ndarray:
@@ -224,26 +238,25 @@ def run_tail_batch(dets, dets_r, info, imgs_left, imgs_right, metas,
     rounds that up to multiples of 64 x 128 so that every group compiles to
     one program; eager PyTorch compiles nothing, so no rounding.)"""
     dev = dets.device
-    H = max(im.shape[0] for im in [*imgs_left, *imgs_right])
-    W = max(im.shape[1] for im in [*imgs_left, *imgs_right])
-    packs, trans = [], []
-    for meta, im in zip(metas, imgs_left):
-        t, p = calib_pack_from_meta(meta, cfg, float(im.shape[1]),
-                                    float(im.shape[0]))
-        trans.append(t)
-        packs.append(p)
-    mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            dev, non_blocking=True)
-
-    return _tail_batch(dets, dets_r, info, up(_pad_stack(imgs_left, H, W)),
-                       up(_pad_stack(imgs_right, H, W)), up(np.stack(trans)),
-                       up(np.stack(packs)), mean, std, grid=cfg.grid,
-                       run_align=run_align, cost_volume=cfg.cost_volume,
-                       align_topk=cfg.align_topk)
+    with span("tail"):
+        with span("tail.prep"):
+            H = max(im.shape[0] for im in [*imgs_left, *imgs_right])
+            W = max(im.shape[1] for im in [*imgs_left, *imgs_right])
+            packs, trans = [], []
+            for meta, im in zip(metas, imgs_left):
+                t, p = calib_pack_from_meta(meta, cfg, float(im.shape[1]),
+                                            float(im.shape[0]))
+                trans.append(t)
+                packs.append(p)
+            mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
+            std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
+            ups = [_upload(a, dev) for a in (
+                _pad_stack(imgs_left, H, W), _pad_stack(imgs_right, H, W),
+                np.stack(trans), np.stack(packs))]
+        return _tail_batch(dets, dets_r, info, *ups, mean, std,
+                           grid=cfg.grid, run_align=run_align,
+                           cost_volume=cfg.cost_volume,
+                           align_topk=cfg.align_topk)
 
 
 def bucket_results(rows: np.ndarray, classes: np.ndarray, keep: np.ndarray,

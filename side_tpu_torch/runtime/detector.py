@@ -11,6 +11,12 @@ pass of the network and one tail over the frame axis.  With
 SIDE_TPU_TORCH_HOST_TAIL=1 `dispatch` stops after the decode and `finish`
 runs the host tail (`postprocess/post_process.py:process_frame`).
 
+Under torch.profiler the stages show as spans (runtime/spans.py): `net`,
+`decode`, the device tail's `tail` and `tail.*`, and inside `finish` /
+`finish_batch` `val.wait_device` (the fence), `val.fetch` (the copy to the
+host) and `val.report` (bucket and score filter), on the boundaries of the
+`net`, `dec` and `post` + `merge` times.
+
 Every arch of the factory that takes the stereo batch runs here; with
 `--not_cost_volume` the network stops after the heads and the info rows
 carry no depth column, so the tail takes the disparity depth.
@@ -39,6 +45,7 @@ from ..postprocess.device_tail import (bucket_results, run_tail,
                                        run_tail_batch)
 from ..postprocess.post_process import process_frame
 from .. import weights
+from .spans import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -141,22 +148,24 @@ class Detector:
     @torch.inference_mode()
     def network(self, batch: Dict[str, torch.Tensor]):
         """Normalisation + the network on the device: its output dict."""
-        batch = dict(batch)
-        batch["input"] = self._normalise(batch["input"])
-        batch["input_right"] = self._normalise(batch["input_right"])
-        return self.model(batch, use_cost_volume=self.cfg.cost_volume)
+        with span("net"):
+            batch = dict(batch)
+            batch["input"] = self._normalise(batch["input"])
+            batch["input_right"] = self._normalise(batch["input_right"])
+            return self.model(batch, use_cost_volume=self.cfg.cost_volume)
 
     @torch.inference_mode()
     def decode(self, out: Dict[str, torch.Tensor]):
         """Sigmoid + ddd_decode of the network's output: (dets, dets_r,
         info (B, K, 10)), or info (B, K, 9) without the depth path."""
-        hm = torch.sigmoid(out["hm"])
-        dets, dets_r, info = dec.ddd_decode(
-            hm, out["kept_type"], out["dim"], out["orien"], out["wh"],
-            out["reg"], grid_size=self.cfg.grid, K=self.cfg.K)
-        if self.cfg.cost_volume:
-            info = torch.cat([info, out["depth"]], dim=2)
-        return dets, dets_r, info
+        with span("decode"):
+            hm = torch.sigmoid(out["hm"])
+            dets, dets_r, info = dec.ddd_decode(
+                hm, out["kept_type"], out["dim"], out["orien"], out["wh"],
+                out["reg"], grid_size=self.cfg.grid, K=self.cfg.K)
+            if self.cfg.cost_volume:
+                info = torch.cat([info, out["depth"]], dim=2)
+            return dets, dets_r, info
 
     def process(self, batch: Dict[str, torch.Tensor]):
         """Network + decode on the device: (dets, dets_r, info)."""
@@ -236,24 +245,29 @@ class Detector:
         if run_align is not None and run_align != pending["run_align"] \
                 and pending["fused"]:
             pending = self.dispatch(pending, run_align=run_align)
-        t_net0 = time.time()
-        _sync(self.device)
-        t_net = time.time()
-        if pending["fused"]:
-            rows, classes = (h.cpu().numpy() for h in pending["handles"])
+        with span("val.wait_device"):
+            t_net0 = time.time()
+            _sync(self.device)
+            t_net = time.time()
+        with span("val.fetch"):
+            if pending["fused"]:
+                fetched = [h.cpu().numpy() for h in pending["handles"]]
+            else:
+                fetched = [h[0].float().cpu().numpy()
+                           for h in pending["handles"]]
             t_dec = time.time()
-            results = self._bucket(rows, classes)
-        else:
-            dets, dets_r, info = (h[0].float().cpu().numpy()
-                                  for h in pending["handles"])
-            t_dec = time.time()
-            results = process_frame(
-                dets, dets_r, info, pending["meta"], self.cfg,
-                img_left=pending["image"], img_right=pending["image_right"],
-                run_align=pending["run_align"])
-        t_post = time.time()
-        results = self.merge_outputs(results)
-        t_end = time.time()
+        with span("val.report"):
+            if pending["fused"]:
+                results = self._bucket(*fetched)
+            else:
+                results = process_frame(
+                    *fetched, pending["meta"], self.cfg,
+                    img_left=pending["image"],
+                    img_right=pending["image_right"],
+                    run_align=pending["run_align"])
+            t_post = time.time()
+            results = self.merge_outputs(results)
+            t_end = time.time()
         return {
             "results": results,
             "tot": t_end - pending["t0"], "load": pending["load"],
@@ -284,25 +298,28 @@ class Detector:
         """Fetch the batched rows; returns one result dict per frame, the
         group's net and dec times shared out evenly."""
         pres = pending["pres"]
-        t_net0 = time.time()
-        _sync(self.device)
-        t_net = time.time()
-        rows_b, classes_b = (h.cpu().numpy() for h in pending["handles"])
-        t_dec = time.time()
+        with span("val.wait_device"):
+            t_net0 = time.time()
+            _sync(self.device)
+            t_net = time.time()
+        with span("val.fetch"):
+            rows_b, classes_b = (h.cpu().numpy() for h in pending["handles"])
+            t_dec = time.time()
         net = pending["t_dispatch"] + (t_net - t_net0)
         outs = []
-        for pre, rows, classes in zip(pres, rows_b, classes_b):
-            results = self._bucket(rows, classes)
-            t_post = time.time()
-            results = self.merge_outputs(results)
-            t_end = time.time()
-            outs.append({
-                "results": results,
-                "tot": t_end - pre["t0"], "load": pre["load"],
-                "pre": pre["pre"], "net": net / len(pres),
-                "dec": (t_dec - t_net) / len(pres),
-                "post": t_post - t_dec, "merge": t_end - t_post,
-            })
+        with span("val.report"):
+            for pre, rows, classes in zip(pres, rows_b, classes_b):
+                results = self._bucket(rows, classes)
+                t_post = time.time()
+                results = self.merge_outputs(results)
+                t_end = time.time()
+                outs.append({
+                    "results": results,
+                    "tot": t_end - pre["t0"], "load": pre["load"],
+                    "pre": pre["pre"], "net": net / len(pres),
+                    "dec": (t_dec - t_net) / len(pres),
+                    "post": t_post - t_dec, "merge": t_end - t_post,
+                })
         return outs
 
     def run(self, images_or_paths, image_id=None, calib=None,

@@ -26,10 +26,17 @@ Rank 0 alone writes checkpoints; validation runs whole on every rank.
 
 The Trainer runs on `cuda` (or the mesh's device) unless the caller passes
 `device="cpu"`; with no CUDA device and no explicit device it raises.
+
+Under torch.profiler each step of `run_epoch` shows as the spans (see
+runtime/spans.py) `train.data` (the loader's handout; one more ends the
+loop), `train.upload`, `train.forward` (normalisation, model, loss),
+`train.backward`, `train.allreduce` (under a mesh), `train.optimizer` and
+`train.meters` (the per-step `.item()` reads and the log line), in turn.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List, Optional
 
@@ -45,6 +52,7 @@ from .. import weights
 from . import checkpoint as ckpt
 from .detector import resolve_device
 from .logger import AverageMeter, Logger
+from .spans import begin, span
 
 BATCH_KEYS = ("input", "input_right", "hm", "wh", "reg", "dim", "orien",
               "depth", "kept", "ind", "ind_float", "rot_mask", "fb",
@@ -168,19 +176,21 @@ class Trainer:
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Forward and loss in the model's current mode: (total, stats)."""
         cfg = self.cfg
-        batch = normalize_images(batch, self.mean, self.std)
-        target = boxes_from_targets(batch["ind_float"], batch["wh"],
-                                    batch["reg"], cfg.output_w, cfg.wh_scale)
-        extra = {}
-        if getattr(self.model, "takes_generator", False) \
-                and self.model.training:
-            extra["generator"] = self.dropout_generator()
-        out = self.model(batch, target=target,
-                         use_cost_volume=cfg.cost_volume, **extra)
-        return stereo_loss(out, batch, self.loss_weight, cfg.grid,
-                           cfg.uncert, cfg.cost_volume,
-                           depth_aux_weight=cfg.depth_aux_weight,
-                           mse_loss=cfg.mse_loss)
+        with span("train.forward"):
+            batch = normalize_images(batch, self.mean, self.std)
+            target = boxes_from_targets(batch["ind_float"], batch["wh"],
+                                        batch["reg"], cfg.output_w,
+                                        cfg.wh_scale)
+            extra = {}
+            if getattr(self.model, "takes_generator", False) \
+                    and self.model.training:
+                extra["generator"] = self.dropout_generator()
+            out = self.model(batch, target=target,
+                             use_cost_volume=cfg.cost_volume, **extra)
+            return stereo_loss(out, batch, self.loss_weight, cfg.grid,
+                               cfg.uncert, cfg.cost_volume,
+                               depth_aux_weight=cfg.depth_aux_weight,
+                               mse_loss=cfg.mse_loss)
 
     def dropout_generator(self) -> torch.Generator:
         """The generator of this step's dropout masks, seeded from
@@ -198,9 +208,11 @@ class Trainer:
             p.grad = None
         with data_parallel(self.mesh):
             total, stats = self.loss(batch)
-            total.backward()
+            with span("train.backward"):
+                total.backward()
         if self.mesh.active:
-            self.all_reduce_gradients()
+            with span("train.allreduce"):
+                self.all_reduce_gradients()
         return {k: v.detach() for k, v in stats.items()}
 
     def all_reduce_gradients(self) -> None:
@@ -221,7 +233,8 @@ class Trainer:
         """Forward in training mode (batch statistics), backward, Adam."""
         self.model.train()
         stats = self.gradients(batch)
-        self.optimizer.step()
+        with span("train.optimizer"):
+            self.optimizer.step()
         self.step += 1
         return stats
 
@@ -239,33 +252,40 @@ class Trainer:
         meters = {name: AverageMeter() for name in self.loss_states}
         data_time, batch_time = AverageMeter(), AverageMeter()
         num_iters = len(loader) if cfg.num_iters < 0 else cfg.num_iters
+        begin()
+        batches = iter(loader)
         end = time.time()
-        for it, batch in enumerate(loader):
-            if it >= num_iters:
+        for it in itertools.count():
+            with span("train.data", it):
+                batch = next(batches, None)
+            if batch is None or it >= num_iters:
                 break
             data_time.update(time.time() - end)
             n = batch["input"].shape[0]
-            batch = self.to_device(batch)
+            with span("train.upload"):
+                batch = self.to_device(batch)
             stats = (self.train_step(batch) if phase == "train"
                      else self.val_step(batch))
-            for name in meters:
-                meters[name].update(stats[name].item(), n)
-            batch_time.update(time.time() - end)
-            end = time.time()
-
-            if cfg.print_iter > 0 and it % cfg.print_iter == 0 and \
-                    self.mesh.rank == 0:
-                msg = (f"{cfg.task}/{cfg.exp_id} {phase} "
-                       f"[{epoch}][{it}/{num_iters}]")
+            with span("train.meters"):
                 for name in meters:
-                    msg += f"|{name} {meters[name].avg:.4f} "
-                if cfg.uncert:
-                    msg += "|lw " + ",".join(
-                        f"{w:.3f}" for w in self.loss_weight.tolist())
-                if not cfg.hide_data_time:
-                    msg += (f"|Data {data_time.val:.3f}s"
-                            f"({data_time.avg:.3f}s)|Net {batch_time.avg:.3f}s")
-                print(msg, flush=True)
+                    meters[name].update(stats[name].item(), n)
+                batch_time.update(time.time() - end)
+                end = time.time()
+
+                if cfg.print_iter > 0 and it % cfg.print_iter == 0 and \
+                        self.mesh.rank == 0:
+                    msg = (f"{cfg.task}/{cfg.exp_id} {phase} "
+                           f"[{epoch}][{it}/{num_iters}]")
+                    for name in meters:
+                        msg += f"|{name} {meters[name].avg:.4f} "
+                    if cfg.uncert:
+                        msg += "|lw " + ",".join(
+                            f"{w:.3f}" for w in self.loss_weight.tolist())
+                    if not cfg.hide_data_time:
+                        msg += (f"|Data {data_time.val:.3f}s"
+                                f"({data_time.avg:.3f}s)"
+                                f"|Net {batch_time.avg:.3f}s")
+                    print(msg, flush=True)
 
         ret = {name: m.avg for name, m in meters.items()}
         ret["time"] = batch_time.sum / 60.0

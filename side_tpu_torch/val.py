@@ -9,14 +9,24 @@ pass over 2B images and one tail over the frame axis; the last group is
 padded by repeating its final frame and the padded results are dropped),
 `--eval_batches 1,4` one full pass per size in one process, `--serial` (no
 pipelining: `Detector.run` frame by frame), `--no_align`, `--num_images N`,
-`--no_eval`, `--profile` (a torch.profiler trace under `<save_dir>/profile`),
-`--dcn_fused` (the fused offset/mask DCN kernel, ops/deform_conv.py),
-`--device cpu` (the plain CPU path; without it the run needs a CUDA device),
-and `--synthetic_scenes N`: N rendered scenes held in memory with their
-labels written under `<save_dir>/synthetic_gt`, for machines without OpenCV
-or a dataset.  Pipelined (the default), a producer thread runs load +
-pre-process ahead, and the main thread dispatches group i before it finishes
-group i-1.
+`--no_eval`, `--profile` (a torch.profiler trace, `val_trace.json` under
+`<save_dir>/profile`; see below), `--dcn_fused` (the fused offset/mask DCN
+kernel, ops/deform_conv.py), `--device cpu` (the plain CPU path; without
+it the run needs a CUDA device), and `--synthetic_scenes N`: N rendered
+scenes held in memory with their labels written under
+`<save_dir>/synthetic_gt`, for machines without OpenCV or a dataset.
+Pipelined (the default), a producer thread runs load + pre-process ahead,
+and the main thread dispatches group i before it finishes group i-1.
+
+In the `--profile` trace the pass's stages show beside the kernels as host
+ranges named `side::<stage>` (runtime/spans.py): per group `val.wait_frames`
+(the main thread waiting for the producer's frames), `val.dispatch` (holding
+the Detector's `net`, `decode` and `tail`, which holds `tail.prep`,
+`tail.solve`, `tail.align`, `tail.resolve`) and `val.finish` (holding
+`val.wait_device`, `val.fetch`, `val.report`), and one `side::anchor` a
+pass.  The producer's `val.pre` spans (load + pre-process, one a frame) are
+only in the in-memory buffer (`spans.recorded()`): the profiler records no
+operation of a thread it did not start.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from .demo import _pop_option
 from .ops import deform_conv as dc
 from .postprocess.post_process import save_kitti_results
 from .runtime.logger import AverageMeter
+from .runtime.spans import begin, span
 
 STAGES = ("tot", "load", "pre", "net", "dec", "post", "merge")
 Frame = Tuple[int, tuple, list]     # image id, (left, right), calib
@@ -62,7 +73,9 @@ def run_pass(cfg: Config, source: Iterable[Frame], detector, *, n: int,
     report.  (The JAX package takes it between reports; here the host's
     kernel launches make a dispatch last about as long as the device work,
     so the reports of two groups arrive back to back and their spacing
-    says nothing.)"""
+    says nothing.)  Under torch.profiler the pass records the spans that
+    the module's docstring lists."""
+    call = begin()
     meters = {k: AverageMeter() for k in STAGES}
     results = {}
     report_t = []
@@ -91,7 +104,9 @@ def run_pass(cfg: Config, source: Iterable[Frame], detector, *, n: int,
         def producer():
             try:
                 for ind, (img_id, pair, calib) in enumerate(frames):
-                    q.put((ind, img_id, detector.load_and_pre(pair, calib)))
+                    with span("val.pre", ind, call=call):
+                        pre = detector.load_and_pre(pair, calib)
+                    q.put((ind, img_id, pre))
             except Exception as e:          # re-raised by the consumer
                 failure.append(e)
             q.put(None)
@@ -111,26 +126,31 @@ def run_pass(cfg: Config, source: Iterable[Frame], detector, *, n: int,
 
         def finish(pending):
             group, n_real, handle = pending
-            rets = ([detector.finish(handle)] if eval_batch == 1
-                    else detector.finish_batch(handle))
-            for (ind, img_id, _), ret in list(zip(group, rets))[:n_real]:
-                report(ind, img_id, ret)
+            with span("val.finish", group[0][0]):
+                rets = ([detector.finish(handle)] if eval_batch == 1
+                        else detector.finish_batch(handle))
+                for (ind, img_id, _), ret in list(zip(group, rets))[:n_real]:
+                    report(ind, img_id, ret)
 
         pending = None
         done = False
+        taken = 0
         while not done:
-            group, done = next_group()
+            with span("val.wait_frames", taken):
+                group, done = next_group()
             if not group:
                 break
             n_real = len(group)
+            taken += n_real
             group += [group[-1]] * (eval_batch - n_real)
-            starts[group[0][0]] = time.time()
-            if eval_batch == 1:
-                handle = detector.dispatch(group[0][2],
-                                           run_align=not no_align)
-            else:
-                handle = detector.dispatch_batch(
-                    [g[2] for g in group], run_align=not no_align)
+            with span("val.dispatch", group[0][0]):
+                starts[group[0][0]] = time.time()
+                if eval_batch == 1:
+                    handle = detector.dispatch(group[0][2],
+                                               run_align=not no_align)
+                else:
+                    handle = detector.dispatch_batch(
+                        [g[2] for g in group], run_align=not no_align)
             if pending is not None:
                 finish(pending)
             pending = (group, n_real, handle)
