@@ -6,7 +6,8 @@
 Phases, each of which must pass:
   1. toolchain: CUDA version, device, capability 9.0, power limit; build
      every kernel from side_tpu_torch/csrc (dcn_fwd.cu, dcn_bwd.cu,
-     dcn_fwd_om.cu and gather_bilinear.cu, one nvcc each, started together);
+     dcn_fwd_om.cu, gather_bilinear.cu and box_solve.cu, one nvcc each,
+     started together);
   2. the forward kernel against its plain PyTorch version on the card at the
      7 distinct DeformBlock shapes of the serving path (B=2), in bf16 and
      f32 with R=1, and R=-1 (exact) at one shape, at two ragged bf16
@@ -197,7 +198,20 @@ Phases, each of which must pass:
      11's R = 1 checkpoint stays exact (forward launches at radius -1
      only); dryrun_multichip(2) on the card (2 gloo ranks on cuda:0, f32,
      TF32 off): passes, and each rank launches the forward kernel, K2 and
-     K3 16 times.
+     K3 16 times;
+ 17. the box solve K6 (csrc/box_solve.cu, which replaces no TPU kernel)
+     against the plain solve on the card at one frame's rows (N = 100)
+     and a validation group's (N = 800), drawn by tests/torch_box_rows.py:
+     the same finite rows; equal bit for bit to the plain solve over the
+     rows tiled to 2,400 (where cuBLAS sums in the kernel's order); against
+     the plain solve at N, at most 5 % of the rows beyond 1e-4 and none
+     beyond 1e-2, beside the plain solve's own differences between the two
+     batch sizes (the rows whose cost stalls at f32's resolution); the
+     kernel's time, an empty launch's (`launch_floor_ms`, the spin kernel
+     at 1 cycle), the plain chain's
+     between two events (its host dispatch gaps included), the host time
+     of one call of each, and the roofline bound.  Phase 10 also holds
+     K6 to 2 launches a group (the solve and the re-solve).
 Kernel times are device times: each timed call is queued behind a short
 spin on the card (`time_ms`).  `cuda_core_ms` is the CUDA-core body of the
 forward, of K2 and of K3 timed on the same bf16 operands in the same run: the
@@ -1092,6 +1106,92 @@ def phase_gather_kernel() -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# K6: rows of one frame (K = 100) and of a validation group of 8 frames,
+# (rows, seed of tests/torch_box_rows.py); about 20 * 370 operations a row
+BOX_SOLVE_ROWS = ((100, 1), (800, 0))
+# the batch at which the plain solve sums J^T r in the kernel's order
+# (tests/test_torch_cuda.py: PLAIN_ORDER_ROWS)
+BOX_SOLVE_ORDER_ROWS = 2400
+BOX_SOLVE_OPS_PER_ROW = 7_400
+BOX_SOLVE_BYTES_PER_ROW = 22 * 4 + 3 * 4
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host time of one call of fn() (its launches enqueued, not
+    waited for), the device idle before each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def phase_box_solve() -> dict:
+    """Phase 17: K6 against the plain solve, times and bound."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_box_rows
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
+    from side_tpu_torch.postprocess import box_solver as BS
+    rows = []
+    with torch.inference_mode():
+        for n, seed in BOX_SOLVE_ROWS:
+            consts, z = torch_box_rows.solve_rows(n, seed)
+            consts = BS.SolveConsts(*[t.cuda() for t in consts])
+            z = z.cuda()
+            before = BOX_SOLVE.launches
+            got = BS.solve_x_y_theta(consts, z)
+            check(BOX_SOLVE.launches == before + 1,
+                  "solve_x_y_theta on the card did not launch box_solve")
+            want = BS.solve_x_y_theta_plain(consts, z)
+            reps = BOX_SOLVE_ORDER_ROWS // n
+            same_order = BS.solve_x_y_theta_plain(
+                BS.SolveConsts(*[t.repeat(reps) for t in consts]),
+                z.repeat(reps))[:n]
+            finite = torch.isfinite(want).all(dim=1)
+            check(torch.equal(torch.isfinite(got).all(dim=1), finite),
+                  "box_solve and the plain solve differ in their finite rows")
+            far = (got - want)[finite].abs().amax(dim=1)
+            self_far = (same_order - want)[finite].abs().amax(dim=1)
+
+            t_bytes = n * BOX_SOLVE_BYTES_PER_ROW / HBM_BYTES_PER_S
+            t_ops = n * BOX_SOLVE_OPS_PER_ROW / PEAK_FLOPS[torch.float32]
+            row = {"kernel": "box_solve", "rows": n,
+                   "nonfinite_rows": int((~finite).sum()),
+                   "equal_to_plain_at_order_rows": bool(
+                       ((got == same_order) | (got.isnan() &
+                                              same_order.isnan())).all()),
+                   "max_abs_err": float(far.max()),
+                   "rows_beyond_1e-4": int((far > 1e-4).sum()),
+                   "plain_self_max_abs_diff": float(self_far.max()),
+                   "plain_self_rows_beyond_1e-4": int(
+                       (self_far > 1e-4).sum()),
+                   "ms": time_ms(lambda: BS.solve_x_y_theta(consts, z)),
+                   "launch_floor_ms": time_ms(
+                       lambda: torch.cuda._sleep(1)),
+                   "plain_ms": time_ms(lambda: BS.solve_x_y_theta_plain(
+                       consts, z), reps=5, warmup=1),
+                   "host_ms": _host_ms(lambda: BS.solve_x_y_theta(consts,
+                                                                  z)),
+                   "plain_host_ms": _host_ms(
+                       lambda: BS.solve_x_y_theta_plain(consts, z)),
+                   "bytes": n * BOX_SOLVE_BYTES_PER_ROW,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "launch latency (roofline: " + (
+                       "bytes" if t_bytes >= t_ops else "operations") + ")"}
+            rows.append(row)
+            log(f"[box_solve] {json.dumps(row)}")
+            check(row["equal_to_plain_at_order_rows"] and
+                  row["rows_beyond_1e-4"] <= 0.05 * n and
+                  row["max_abs_err"] <= 1e-2,
+                  f"box_solve disagrees with the plain solve: {row}")
+    return {"rows": rows}
+
+
 # How the rows of two validation runs over the same frames are compared
 # (eval_batch 4 fused against eval_batch 1 unfused, bf16, random weights).
 # cuDNN picks other algorithms at other batch sizes and the two DCN routes
@@ -1211,6 +1311,7 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
     from side_tpu_torch.config import CLASS_NAMES, Config
     from side_tpu_torch.data.synthetic import val_scenes
     from side_tpu_torch.ops import deform_conv as dc
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
     from side_tpu_torch.ops.dcn_cuda import KERNELS
     from side_tpu_torch.postprocess.post_process import save_kitti_results
     from side_tpu_torch.runtime.detector import Detector
@@ -1226,8 +1327,10 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
         gt_dir = os.path.join(tmp, "label_2")
         scenes = val_scenes(n_scenes, seed=50, label_dir=gt_dir)
 
+        kernels = {**KERNELS, "box_solve": BOX_SOLVE}
+
         def run(eb, fused, record=True):
-            rec = _RecordingDetector(det, KERNELS)
+            rec = _RecordingDetector(det, kernels)
             t0 = time.perf_counter()
             with dc.dcn_fused(fused):
                 results, meters, steady = val.run_pass(
@@ -1238,9 +1341,9 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
             return rec, results, steady, wall
 
         # the counted run: every count set to 0 just before, read just after
-        reset_counts(KERNELS)
+        reset_counts(kernels)
         rec4, results4, _, _ = run(eval_batch, True)
-        launches = {k: v.launches for k, v in KERNELS.items()}
+        launches = {k: v.launches for k, v in kernels.items()}
         tensor_core = KERNELS["dcn_fwd_om"].tensor_core_launches
         n_groups = -(-n_scenes // eval_batch)
         check(len(rec4.group_launches) == n_groups,
@@ -1248,9 +1351,9 @@ def phase_validation(n_scenes: int = 10, eval_batch: int = 4) -> dict:
         for i, g in enumerate(rec4.group_launches):
             check(g["dcn_fwd_om"] == 16 and g["dcn_fwd"] == 0 and
                   g["dcn_bwd_dx"] == 0 and g["dcn_bwd_dcoord"] == 0 and
-                  g["dcn_fwd_om_tensor_core"] == 16,
+                  g["dcn_fwd_om_tensor_core"] == 16 and g["box_solve"] == 2,
                   f"group {i} launched {g}, expected 16 dcn_fwd_om only, "
-                  "all on the tensor-core route")
+                  "all on the tensor-core route, and 2 box_solve")
         check(sorted(results4) == list(range(n_scenes)),
               f"results for frames {sorted(results4)}")
         res_dir = save_kitti_results(results4, tmp, CLASS_NAMES)
@@ -2822,6 +2925,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE_LIB
     from side_tpu_torch.ops.dcn_cuda import BWD_LIB, FWD_LIB, OM_LIB
     from side_tpu_torch.ops.gather_cuda import GATHER_LIB
     from side_tpu_torch.tools.acceptance_16 import PROTOCOL_SHAPES
@@ -2843,6 +2947,7 @@ def main() -> int:
         p14 = phase_exact_audit_recipe(trained["checkpoint"])
         p15 = phase_acceptance_seeds()
         p16 = phase_entry_points(trained["checkpoint"])
+    box = phase_box_solve()
 
     bf16 = [r for r in kern["rows"] if r["dtype"] == "bfloat16"
             and r["radius"] == 1]
@@ -3133,6 +3238,24 @@ def main() -> int:
             entry["launches_entry_fn"] = p16["entry_launches"][name]
             entry["launches_reference_exact"] = \
                 p16["reference_exact"]["launches"]
+    group = next(r for r in box["rows"] if r["rows"] == 800)
+    entries.append({
+        "name": "box_solve", "route": "cuda",
+        "source": str(BOX_SOLVE_LIB.source.relative_to(root)),
+        "replaces": None,
+        "replaces_note": "replaces no TPU kernel: the JAX package solves "
+                         "with jnp ops under vmap(jacfwd)",
+        "launches": validation["launches"]["box_solve"],
+        "launches_path": f"validation, {validation['groups']} groups of 4 "
+                         "frames (2 a group)",
+        "max_abs_err": max(r["max_abs_err"] for r in box["rows"]),
+        **{k: group[k] for k in ("ms", "launch_floor_ms", "plain_ms",
+                                 "host_ms", "plain_host_ms", "bound_ms",
+                                 "bound_by")},
+        "library_ms": None,
+        "unit": "one validation group of 8 frames at K = 100 (800 rows)",
+        "per_shape": box["rows"],
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     log(f"[summary] validation {json.dumps(validation['times'])}; "
         f"launches {json.dumps(validation['launches'])}")

@@ -361,9 +361,10 @@ def build_all(libraries: Optional[Sequence[CudaLibrary]] = None):
 
 
 def all_libraries() -> Sequence[CudaLibrary]:
-    """The DCN libraries and the gather probe's."""
+    """The DCN libraries, the gather probe's and the box solve's."""
+    from .box_solve_cuda import BOX_SOLVE_LIB
     from .gather_cuda import GATHER_LIB
-    return (*LIBRARIES, GATHER_LIB)
+    return (*LIBRARIES, GATHER_LIB, BOX_SOLVE_LIB)
 
 
 def _dtype_code(x: torch.Tensor) -> int:

@@ -9,6 +9,10 @@ the JAX package vmaps `jax.jacfwd`: the tail runs under
 `torch.inference_mode`, where forward-mode AD (`torch.func.jvp`) gives no
 derivative in some PyTorch releases (on 2.11 the solver then returned its
 initial state).
+
+On the card `solve_x_y_theta` runs the whole solve as one kernel
+(csrc/box_solve.cu) that does this arithmetic row by row; the plain version
+here serves CPU tensors and is the kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.box_solve_cuda import BOX_SOLVE
 
 # per viewpoint, the (w, l) signs of the 3D vertex that projects to the
 # left / right / bottom edge of the 2D box (viewpoint 7 = the fallback)
@@ -231,7 +237,18 @@ def gauss_newton(res_fn, jac_fn, x0: torch.Tensor, num_iters: int = 20,
 def solve_x_y_theta(consts: SolveConsts, z: torch.Tensor,
                     num_iters: int = 20) -> torch.Tensor:
     """Batched 3-DoF pose refinement at depth z (N,).  Returns (N, 3) =
-    (x, y, theta)."""
+    (x, y, theta).  CUDA tensors run csrc/box_solve.cu, the whole solve in
+    one launch (ops/box_solve_cuda.py; it raises on what it cannot take);
+    CPU tensors take `solve_x_y_theta_plain`."""
+    if z.device.type == "cuda":
+        return BOX_SOLVE(consts, z, num_iters)
+    return solve_x_y_theta_plain(consts, z, num_iters)
+
+
+def solve_x_y_theta_plain(consts: SolveConsts, z: torch.Tensor,
+                          num_iters: int = 20) -> torch.Tensor:
+    """The plain version of the solve, on any device: `gauss_newton` over
+    `residuals_xytheta` and `jacobian_xytheta` from the initial state."""
     init_x = z * (consts.left_u + consts.right_u) / 2.0
     init_y = z * (consts.bottom_v + consts.top_v) / 2.0 + consts.h / 2.0
     init_t = consts.alpha + math.pi / 2 - torch.atan2(-init_x, z)

@@ -29,7 +29,10 @@ between two runs by the order of the additions: bounded below at 1e-5 of each
 output's max; under `deterministic_mode` K2 takes its patch body at every
 width of the window and K3 sums partial copies in a fixed order, the same
 bits on a second call.  K5 has two bodies (ops/gather_cuda.py:gather_body), both held
-to the same tolerance.
+to the same tolerance.  The box solve (csrc/box_solve.cu) equals the plain
+solve bit for bit where cuBLAS sums in its order (a batch of 2,400 rows); at
+other batch sizes the plain solve rounds otherwise, and rows whose cost
+stalls at f32's resolution move by up to ~2e-3 between the two.
 """
 
 import dataclasses
@@ -940,6 +943,102 @@ def test_box_solver_moves_under_inference_mode_on_card(card):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert abs(float(got[0, 2]) - 3.9159) < 1e-3
 
+
+
+# ------------------------------------------------------------- the box solve
+# the batch at which cuBLAS's bmm (PyTorch 2.11, CUDA 12.8, H100) sums J^T r
+# in the order csrc/box_solve.cu takes; at 800 and 100 rows it splits the 6
+# terms otherwise
+PLAIN_ORDER_ROWS = 2400
+
+
+@pytest.mark.parametrize("n, seed", [(800, 0), (100, 1)],
+                         ids=["group", "frame"])
+def test_box_solve_kernel_matches_plain_on_card(card, monkeypatch, n, seed):
+    """csrc/box_solve.cu against the plain solve on the card, at a
+    validation group's rows (N = 800) and one frame's (N = 100), drawn by
+    tests/torch_box_rows.py: every viewpoint sector, truncated boxes, the
+    no-keypoint fallback, rows whose step the plain solve rejects, and four
+    degenerate rows (z NaN or infinite, zero denominators, an overflowing
+    J^T J).  One launch per call and no plain chain; the same rows are not
+    finite.  The kernel equals, bit for bit, the plain solve run on the
+    rows tiled to PLAIN_ORDER_ROWS.  Against the plain solve at N the
+    finite rows agree to 1e-4 except where the plain solve itself moves by
+    more between the two batch sizes: rows whose cost stalls at f32's
+    resolution, whose accept tests part under another rounding (at most 5 %
+    of the rows, and by at most 1e-2)."""
+    import torch_box_rows
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
+    from side_tpu_torch.postprocess import box_solver as BS
+    consts, z = torch_box_rows.solve_rows(n, seed)
+    assert set(BS.viewpoint_from_alpha(consts.alpha).tolist()) == set(range(8))
+    assert bool(((consts.m_ul == 0) | (consts.m_ur == 0)).any())
+    assert bool(((consts.m_alpha == 1) & (consts.m_uk == 0)).any())
+    assert bool(torch_box_rows.rejected(consts, z).any())
+    dev = BS.SolveConsts(*[t.to(card) for t in consts])
+    reps = PLAIN_ORDER_ROWS // n
+    with torch.inference_mode():
+        want = BS.solve_x_y_theta_plain(dev, z.to(card)).cpu()
+        same_order = BS.solve_x_y_theta_plain(
+            BS.SolveConsts(*[t.repeat(reps) for t in dev]),
+            z.to(card).repeat(reps))[:n].cpu()
+
+        def refuse(*a, **k):
+            raise AssertionError("the plain solve ran on the card")
+        monkeypatch.setattr(BS, "gauss_newton", refuse)
+        before = BOX_SOLVE.launches
+        got = BS.solve_x_y_theta(dev, z.to(card)).cpu()
+    assert BOX_SOLVE.launches == before + 1
+    finite = torch.isfinite(want).all(dim=1)
+    assert torch.equal(torch.isfinite(got).all(dim=1), finite)
+    assert int((~finite).sum()) == 2
+    assert bool(((got == same_order) | (got.isnan() & same_order.isnan()))
+                .all())
+    err = (got - want)[finite].abs().amax(dim=1)
+    assert int((err > 1e-4).sum()) <= 0.05 * n and float(err.max()) <= 1e-2
+
+
+def test_tail_batch_with_the_kernel_matches_plain_solve_on_card(card,
+                                                                monkeypatch):
+    """run_tail_batch on one group of 8 rendered frames (the serving
+    Config: 384x1280 bf16, K = 100, alignment on; He-scaled seeded
+    weights) launches the box solve twice; its rows against the same tail
+    with the plain solve, by the benchmark's tail distance over the slots
+    it judges (portbench/check.py: tail_dist, tail_rows): median and 90th
+    percentile within the validation cell's tail_p50 and tail_p90 limits
+    (portbench/limits/val.side_dla34_cv.b8.json)."""
+    from portbench.check import tail_dist, tail_rows
+    from side_tpu_torch.data.synthetic import val_scenes
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
+    from side_tpu_torch.postprocess import box_solver as BS
+    from side_tpu_torch.postprocess.device_tail import run_tail_batch
+    from side_tpu_torch.runtime.detector import Detector
+    from side_tpu_torch.runtime.synthetic import he_scale, perturb_offsets
+    det = Detector(Config(), device=card)
+    he_scale(det.model)
+    perturb_offsets(det.model, seed=1)
+    pres = [det.load_and_pre(pair, calib)
+            for _, pair, calib in val_scenes(8, seed=3)]
+    batch = {k: torch.cat([p["batch"][k] for p in pres], dim=0)
+             for k in pres[0]["batch"]}
+    with torch.inference_mode():
+        dets, dets_r, info = det.decode(det.network(batch))
+        args = (dets, dets_r, info, [p["image"] for p in pres],
+                [p["image_right"] for p in pres], [p["meta"] for p in pres],
+                det.cfg)
+        before = BOX_SOLVE.launches
+        got = run_tail_batch(*args)[0].cpu().double().numpy()
+        assert BOX_SOLVE.launches == before + 2
+        monkeypatch.setattr(BS, "solve_x_y_theta", BS.solve_x_y_theta_plain)
+        want = run_tail_batch(*args)[0].cpu().double().numpy()
+    assert BOX_SOLVE.launches == before + 2
+    keep = tail_rows(want, det.cfg.peak_thresh, det.cfg.align_topk)
+    dist = tail_dist(got[keep], want[keep])
+    print(f"tail distance over {keep.sum()} slots: p50 "
+          f"{np.percentile(dist, 50):.3g} p90 {np.percentile(dist, 90):.3g}"
+          f" max {dist.max():.3g}")
+    assert np.percentile(dist, 50) <= 0.003176
+    assert np.percentile(dist, 90) <= 0.006618
 
 # ---------------------------------------------------- the voxel variant's K5
 def test_gather_autograd_backward_matches_plain_on_card(card):

@@ -33,7 +33,8 @@ print(len(names))
 def _python_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "test_torch_cuda.py",
-                                         ROOT / "tests" / "torch_dp.py"]
+                                         ROOT / "tests" / "torch_dp.py",
+                                         ROOT / "tests" / "torch_box_rows.py"]
 
 
 def test_every_module_imports_without_jax_or_side_tpu():
@@ -71,7 +72,7 @@ NEW_MODULES = ("val", "postprocess.post_process", "runtime.evaluator",
                "tools.convert_dla34_weights",
                "tools.convert_reference_weights",
                "tools.convert_kitti_to_coco", "tools.calc_anchor_overlap",
-               "bench", "graft_entry")
+               "bench", "graft_entry", "ops.box_solve_cuda")
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)

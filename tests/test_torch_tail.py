@@ -158,6 +158,69 @@ def test_solver_needs_no_forward_mode_ad(monkeypatch):
     assert float((got[:, 2] - init_t).abs().max()) > 1e-2
 
 
+
+@pytest.mark.parametrize("n, seed", [(800, 0), (100, 1)],
+                         ids=["group", "frame"])
+def test_solve_on_cpu_is_the_plain_path_bit_for_bit(n, seed):
+    """solve_x_y_theta on CPU tensors takes the plain path, unchanged: bit
+    for bit the frozen copy of the solver in the benchmark's reference
+    (portbench/reference/box_solver.py, copied before the kernel came), on
+    the card tests' rows (tests/torch_box_rows.py, degenerate rows too),
+    and it launches nothing."""
+    import torch_box_rows
+    from portbench.reference import box_solver as frozen
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
+    consts, z = torch_box_rows.solve_rows(n, seed)
+    before = BOX_SOLVE.launches
+    got = TBS.solve_x_y_theta(consts, z)
+    assert BOX_SOLVE.launches == before
+    want = frozen.solve_x_y_theta(consts, z)
+    assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+    assert int((~torch.isfinite(want).all(dim=1)).sum()) == 2
+
+
+def test_box_solve_field_table_matches_the_kernel():
+    """The kernel reads the constants through a table in the order of its
+    `Field` enum (csrc/box_solve.cu); the wrapper builds the table from
+    ops/box_solve_cuda.py:FIELDS.  The two orders are equal, FIELDS names
+    SolveConsts fields, and they are exactly the fields the plain solve
+    reads (its initial state, residuals and Jacobian)."""
+    import re
+    from pathlib import Path
+    from side_tpu_torch.ops import box_solve_cuda
+    src = (Path(box_solve_cuda.__file__).parent.parent / "csrc" /
+           "box_solve.cu").read_text()
+    body = re.search(r"enum Field : int \{([^}]*)\}", src).group(1)
+    names = [w.strip() for w in body.split(",") if w.strip()]
+    assert names[-1] == "kFields"
+    assert tuple(names[:-1]) == box_solve_cuda.FIELDS
+    assert set(box_solve_cuda.FIELDS) <= set(TBS.SolveConsts._fields)
+
+    class Reads:
+        def __init__(self, c):
+            self.c, self.names = c, set()
+
+        def __getattr__(self, name):
+            self.names.add(name)
+            return getattr(self.c, name)
+
+    c, z, _ = _solver_case()
+    reads = Reads(c)
+    TBS.solve_x_y_theta_plain(reads, z, num_iters=1)
+    assert reads.names == set(box_solve_cuda.FIELDS)
+
+
+def test_box_solve_wrapper_refuses_cpu_tensors():
+    """BOX_SOLVE takes CUDA tensors only: on CPU tensors it raises before
+    it builds or loads anything, and counts no launch."""
+    from side_tpu_torch.ops.box_solve_cuda import BOX_SOLVE
+    c, z, _ = _solver_case()
+    c = TBS.SolveConsts(*[t.float() for t in c])
+    before = BOX_SOLVE.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        BOX_SOLVE(c, z.float())
+    assert BOX_SOLVE.launches == before
+
 def _jax_errors(im_l, im_r, uv, dz, weight, enum, fb):
     """The reference's photometric error table (I, N), as
     dense_align._photometric_best scores it."""
