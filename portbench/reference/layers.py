@@ -1,15 +1,17 @@
 """Single layers of one forward (a training step's first, or a validation
 group's), each judged on the input the model under test gave it: one
 deformable block's DCN product (K1), the heatmap head's 3x3 convolution,
-and the depth path's first layer (the cost volume's 3D convolution, or the
-PointNet's first dense layer); and the stem convolution on the reference's
-own pre-processed image, so that the pre-process is judged with it.  Hooks
-keep the first image's (or RoI's) input and output of each layer on the
-first call (a training step's stem: its output over the whole batch, so
-that a batch cut short or fed the wrong images shows); the reference
-layer, float32, recomputes the output.  Because
-each layer starts from the same input, the gap is that layer's own
-rounding and nothing that the layers before it amplified."""
+and the depth path's first layer where the model has one (the cost
+volume's 3D convolution, or the PointNet's first dense layer); and the
+stem convolution on the reference's own pre-processed image, so that the
+pre-process is judged with it.  Which module each is comes from the table
+of the model's arch family (`LAYERS` of reference/arch_<family>.py, found
+by the model's class).  Hooks keep the first image's (or RoI's) input and
+output of each layer on the first call (a training step's stem: its
+output over the whole batch, so that a batch cut short or fed the wrong
+images shows); the reference layer, float32, recomputes the output.
+Because each layer starts from the same input, the gap is that layer's
+own rounding and nothing that the layers before it amplified."""
 
 from __future__ import annotations
 
@@ -20,15 +22,13 @@ import torch
 import torch.nn as nn
 
 from ..traffic.config import Config
+from . import model as ref_model
 from .deform_conv import deform_block_om
 
-LAYERS = {
-    "stem": "feature_extraction.base.ConvBN_0.Conv_0",
-    "dcn": "feature_extraction.dla_up.ida_0.proj_1",
-    "head": "hm.Conv_0",
-    "depth3d": "depth_estimator.ConvBN3D_0.Conv_0",
-    "pointnet": "pointNet.conv1",
-}
+
+def table(model: nn.Module) -> Dict[str, str]:
+    """The single layers of `model`'s family: name -> module path."""
+    return ref_model.family_of(model).LAYERS
 
 
 def capture(model: nn.Module, whole_stem: bool = False):
@@ -38,7 +38,7 @@ def capture(model: nn.Module, whole_stem: bool = False):
     remove())."""
     store: Dict[str, dict] = {}
     handles = []
-    for name, path in LAYERS.items():
+    for name, path in table(model).items():
         try:
             mod = model.get_submodule(path)
         except AttributeError:
@@ -82,9 +82,9 @@ def gaps(model: nn.Module, store: Dict[str, dict], device,
     """Per layer, |output - reference layer on the same input| / |reference|,
     `model` the float32 reference at the forward's weights; the stem reads
     `stem_x` (stem_input) in place of the input it was given."""
-    out = {}
+    out, paths = {}, table(model)
     for name, got in store.items():
-        mod = model.get_submodule(LAYERS[name])
+        mod = model.get_submodule(paths[name])
         x = stem_x if name == "stem" else got["x"].to(device)
         if hasattr(mod, "offset_mask"):
             ref = deform_block_om(x.permute(0, 2, 3, 1), mod.offset_mask.weight,

@@ -3,6 +3,7 @@ the counts, the isolation from JAX and the JAX package, and that a cell,
 a traffic mix and a metric are added as files alone."""
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -142,6 +143,9 @@ def test_reference_imports_nothing_of_the_program():
         "import sys\n"
         "import portbench.reference.model, portbench.reference.train, "
         "portbench.reference.detect, portbench.traffic.generator\n"
+        "fams = portbench.reference.model.families()\n"
+        "assert {f.__name__.rsplit('.', 1)[1] for f in fams} >= "
+        "{'arch_dla', 'arch_resdcn'}, fams\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & "
         "{'side_tpu', 'side_tpu_torch', 'jax', 'jaxlib', 'flax'}))\n")
     p = _isolated(code)
@@ -210,3 +214,137 @@ def test_checkout_without_the_program_prints_no_result(tmp_path):
                         "--trace", "0"], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+# sha256 of the DLA configurations' weight draws (name, shape, float32
+# bytes of every leaf in order) and of their single-layer tables ([name,
+# module path, a deformable block or not] of every layer the model has),
+# at the tiny size on the CPU, as the harness drew them before the
+# reference found its model, layers and heatmap bias by arch family.
+DLA_DIGESTS = {
+    "side_dla34_cv": (
+        400,
+        "fca47a91bb417c9425bdef14ab775325fcf9570bff1071297da132b8d0889ee6",
+        "325dd67a0ca6654227425bc178edf08a2b45606b74e81f876b098a0727b62451"),
+    "side_dla34_voxel": (
+        399,
+        "26a5e1262b878260ef98b39eff190bef781c95124ff67958a98a6962f97dda79",
+        "252e2db4c914b76905eef8000e76c0df317087cf9178d0a84d6d954ed8e1499a"),
+}
+
+
+@pytest.mark.parametrize("config", sorted(DLA_DIGESTS))
+def test_dla_draws_and_tables_unchanged(config):
+    import hashlib
+    import numpy as np
+    from portbench import weights
+    from portbench.reference import layers, model as ref_model
+    from portbench.traffic.config import Config
+    from portbench.tests.tiny import CONFIG
+    keys = json.load(open(os.path.join(
+        ROOT, "portbench", "configs", f"{config}.json")))["config"]
+    meta = ref_model.build(Config(**dict(keys, **CONFIG)))
+    w = weights.draw(meta, SEED, "cpu")
+    h = hashlib.sha256()
+    for k, v in w.items():
+        h.update(k.encode())
+        h.update(repr(tuple(v.shape)).encode())
+        h.update(v.contiguous().numpy().astype(np.float32).tobytes())
+    table = []
+    for name, path in layers.table(meta).items():
+        try:
+            mod = meta.get_submodule(path)
+        except AttributeError:
+            continue
+        table.append([name, path, hasattr(mod, "offset_mask")])
+    assert (len(w), h.hexdigest(),
+            hashlib.sha256(json.dumps(table).encode()).hexdigest()) == \
+        DLA_DIGESTS[config]
+
+
+def test_arch_without_a_family_names_the_file():
+    from portbench.reference import model as ref_model
+    from portbench.traffic.config import Config
+    with pytest.raises(ValueError, match="portbench/reference/arch_dlav0.py"):
+        ref_model.build(Config(arch="dlav0_34"))
+
+
+RESDCN_CELLS = {"train.side_resdcn101.b4": ("train_b4", "train_loop",
+                                            "train.side_dla34_cv.b4"),
+                "val.side_resdcn101.b8": ("val_b8", "val_pass",
+                                          "val.side_dla34_cv.b8")}
+
+
+@pytest.mark.parametrize("workload", sorted(RESDCN_CELLS))
+def test_new_family_is_files(tmp_path, workload):
+    """A copy of the benchmark gains a configuration of another trunk
+    family, resdcn_101 without a depth path, and a cell of it with its
+    limits file, as new files and new BENCHMARK.json entries, with no file
+    edited: the reference builds it, judges its three single layers and
+    gives its heatmap's last conv the initial bias, and the operation count
+    finds its three DCN layers."""
+    mix, kind, like = RESDCN_CELLS[workload]
+    copy = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "portbench"), copy / "portbench",
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    before = {p: p.read_bytes() for p in (copy / "portbench").rglob("*")
+              if p.is_file()}
+    os.symlink(os.path.join(ROOT, "side_tpu_torch"), copy / "side_tpu_torch")
+    conf = json.load(open(copy / "portbench/configs/side_dla34_cv.json"))
+    conf.update(name="side_resdcn101", source="CenterNet, arXiv 1904.07850")
+    conf["config"].update(arch="resdcn_101", head_conv=64, cost_volume=False)
+    (copy / "portbench/configs/side_resdcn101.json").write_text(
+        json.dumps(conf))
+    shutil.copy(copy / f"portbench/limits/{like}.json",
+                copy / f"portbench/limits/{workload}.json")
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "side_resdcn101",
+                             "source": "https://arxiv.org/abs/1904.07850",
+                             "file": "portbench/configs/side_resdcn101.json",
+                             "reduced": [], "why": "a ResNet-101 trunk"})
+    bench["workloads"].append({"name": workload, "config": "side_resdcn101",
+                               "traffic": mix, "chips": 1,
+                               "why": "another trunk family"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(workload)
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = (
+        "import json, math, torch; torch.set_num_threads(4)\n"
+        "from portbench import run, weights\n"
+        "from portbench.metrics import reader\n"
+        "from portbench.metrics.roofline import dcn_bound_s\n"
+        "from portbench.reference import model as ref_model\n"
+        "from portbench.tests.tiny import SEED, overrides\n"
+        f"r = run.execute({workload!r}, SEED, 0.5, True, device='cpu', "
+        f"**overrides({kind!r}))\n"
+        "out = r.result()\n"
+        "prog = r.compared[0] if isinstance(r.compared, tuple) "
+        "else r.compared\n"
+        "cfg = r.ref_config(r.config_keys)\n"
+        "w = weights.draw(ref_model.build(cfg), SEED, 'cpu')\n"
+        "mfu = reader('mfu.train' if r.data['kind'] == 'train_loop' "
+        "else 'mfu.val')(dict(r.data, device='cuda'))\n"
+        "print(json.dumps({'out': out, 'layers': prog['layers'], "
+        "'hm_out': w['hm_out.bias'].tolist(), "
+        "'hm_conv': w['hm_conv.bias'].abs().max().item(), "
+        "'dcn': r.data['dcn_layers'], 'mfu': mfu, "
+        "'bound': dcn_bound_s(r.data['dcn_layers'], 'bfloat16', True)}))\n")
+    p = _isolated(code, cwd=str(copy))
+    assert p.returncode == 0, p.stderr[-3000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    out = got["out"]
+    assert out["correct"] is True and out["failed"] == 0, out["checks"]
+    for name, c in out["checks"].items():
+        assert c["value"] <= 1e-5, (name, c)
+    assert sorted(got["layers"]) == ["dcn", "head", "stem"]
+    assert all(math.isfinite(v) for v in got["layers"].values())
+    assert got["hm_out"] == [-2.1875] * len(got["hm_out"])
+    assert got["hm_conv"] == 0.0
+    # the three deconvolution stages' DCN layers, the first at Cin 2048
+    assert [s[3:] for s in got["dcn"]] == [[2048, 256], [256, 128],
+                                           [128, 64]]
+    assert math.isfinite(got["mfu"]) and got["mfu"] > 0
+    assert math.isfinite(got["bound"]) and got["bound"] > 0
+    for path, data in before.items():
+        assert path.read_bytes() == data, f"{path} was edited"

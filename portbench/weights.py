@@ -10,8 +10,9 @@ CDF), mask-logit biases N(0, 0.25); offsets that spread over the kinks and
 the clamp make the network amplify rounding some hundred times, so that a
 bfloat16 program and its float32 reference would differ by chaos rather
 than by precision.  The rest is constant: the heatmap head's last bias
--2.1875 (see HM_BIAS: CenterNet's and the port's own initial value, sigmoid
-0.1, at the nearest bfloat16 value; the
+(the leaves that `hm_bias` of the model's arch family names,
+reference/arch_<family>.py) -2.1875 (see HM_BIAS: CenterNet's and the
+port's own initial value, sigmoid 0.1, at the nearest bfloat16 value; the
 heatmaps' scale varies from seed to seed, so that on some seeds part of
 the top K passes the score filter and on others all of it), every other
 bias 0, BatchNorm scale 0.1 (see BN_SCALE), shift 0, running mean 0 and
@@ -25,6 +26,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .reference import model as ref_model
 
 # The heatmap head's last bias: CenterNet's -2.19 (sigmoid 0.1) moved to
 # the nearest bfloat16 value, -2.1875, so that the program's bfloat16
@@ -52,10 +55,11 @@ def bilinear_kernel(factor: int) -> np.ndarray:
     return np.outer(k1, k1).astype(np.float32)
 
 
-def _rule(mod_type: str, mod_name: str, leaf: str, shape) -> tuple:
+def _rule(mod_type: str, mod_name: str, leaf: str, shape, hm_bias) -> tuple:
     """(kind, value): kind "normal" with value the standard deviation, or
-    "const" with the value (a number or an array)."""
-    if mod_name.split(".")[0] == "hm" and leaf == "bias":
+    "const" with the value (a number or an array); `hm_bias(mod_name,
+    leaf)` says whether the leaf takes the heatmap's initial bias."""
+    if hm_bias(mod_name, leaf):
         return "const", HM_BIAS
     if mod_name.endswith("offset_mask"):
         if leaf == "weight":
@@ -83,6 +87,7 @@ def _rule(mod_type: str, mod_name: str, leaf: str, shape) -> tuple:
 
 def leaf_rules(meta_model: torch.nn.Module) -> Dict[str, tuple]:
     """name -> (shape, kind, value) for every parameter and buffer."""
+    hm_bias = ref_model.family_of(meta_model).hm_bias
     rules = {}
     for mod_name, mod in meta_model.named_modules():
         leaves = list(mod.named_parameters(recurse=False)) + \
@@ -90,7 +95,7 @@ def leaf_rules(meta_model: torch.nn.Module) -> Dict[str, tuple]:
         for leaf, t in leaves:
             name = f"{mod_name}.{leaf}" if mod_name else leaf
             rules[name] = (tuple(t.shape),) + _rule(
-                type(mod).__name__, mod_name, leaf, tuple(t.shape))
+                type(mod).__name__, mod_name, leaf, tuple(t.shape), hm_bias)
     return rules
 
 
