@@ -10,6 +10,12 @@ concat.  The three DeformBlocks run the DCN kernels (forward K1, backward
 K2 and K3 on the card) at Cin 512 -> 256 at 1/32, 256 -> 128 at 1/16 and
 128 -> 64 at 1/8 (Cin 2048 at the first stage from resdcn_50 on).  The
 family has no depth output: train and detect it with `--not_cost_volume`.
+
+Under torch.profiler a forward shows the spans (runtime/spans.py)
+`net.trunk` (the ResNet trunk over the 2B images), `net.up` (the three
+deconvolution stages) and `net.heads` (the heads), in turn; inside a
+training step they lie within `train.forward`.  The backward runs on
+autograd's thread and has no spans of its own.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from .dla import (BatchNorm, BilinearUp, Conv2d, ConvBN, DeformBlock,
                   init_weights)
+from ..runtime.spans import span
 from .stereo_net import nchw_input, set_hm_bias
 
 RESNET_SPEC = {
@@ -179,11 +186,14 @@ class StereoResNet(HeadConvs):
         left = nchw_input(batch["input"], self.dtype)
         right = nchw_input(batch["input_right"], self.dtype)
         B = left.shape[0]
-        x = self.trunk(torch.cat([left, right], dim=0))
-        for i in range(3):
-            x = getattr(self, f"DeconvStage_{i}")(x)
-        f_left = x[:B]
-        f_stereo = torch.cat([f_left, x[B:]], dim=1)
-        return {name: self.head(name, f_left if name in self.LEFT_ONLY
-                                else f_stereo)
-                for name in self.heads}
+        with span("net.trunk"):
+            x = self.trunk(torch.cat([left, right], dim=0))
+        with span("net.up"):
+            for i in range(3):
+                x = getattr(self, f"DeconvStage_{i}")(x)
+        with span("net.heads"):
+            f_left = x[:B]
+            f_stereo = torch.cat([f_left, x[B:]], dim=1)
+            return {name: self.head(name, f_left if name in self.LEFT_ONLY
+                                    else f_stereo)
+                    for name in self.heads}

@@ -1,7 +1,8 @@
 """The port's spans (side_tpu_torch/runtime/spans.py) on the CPU: the off
 path records nothing and never fences; under torch.profiler the validation
 pass, the device tail and the training loop show their `side::` ranges,
-nested and ordered as the code runs them, the producer's `val.pre` spans
+nested and ordered as the code runs them, as does the resdcn model's
+forward inside a training step, the producer's `val.pre` spans
 reach the buffer from their own thread, the buffer stays bounded, and no
 result changes.  The small Detector is tests/test_torch_val.py's recipe."""
 
@@ -32,6 +33,10 @@ TRAIN = dict(input_h=64, input_w=128, compute_dtype="float32", max_objs=8,
              roi_size=4, K=8, cv_topk=4, uncert=True, print_iter=1)
 TRAIN_SPANS = ("train.data", "train.upload", "train.forward",
                "train.backward", "train.optimizer", "train.meters")
+RESDCN = dict(input_h=64, input_w=128, compute_dtype="float32",
+              arch="resdcn_101", head_conv=64, cost_volume=False, max_objs=4,
+              K=8, uncert=True)
+NET_SPANS = ("net.trunk", "net.up", "net.heads")
 
 
 @pytest.fixture(scope="module")
@@ -232,3 +237,33 @@ def test_epoch_spans_one_of_each_per_step_in_order(batches):
     assert [s.id for s in call.spans if s.name == "train.data"] == \
         list(range(steps + 1))
     assert all(s.thread == main for s in call.spans)
+
+
+# ------------------------------------------------- the resdcn model's forward
+def test_resdcn_forward_spans_nest_in_train_forward():
+    """resdcn_101 at a small size: off the profiler its forward adds no
+    buffer entry; through `Trainer.train_step` under the profiler the
+    trunk, the up-stages and the heads show once each, in turn, inside
+    the step's `train.forward`."""
+    cfg = Config(**RESDCN)
+    tr = Trainer(cfg, create_model(cfg, seed=1), steps_per_epoch=1,
+                 device="cpu")
+    batch = tr.to_device(scene_batch(cfg, np.random.RandomState(3), 1,
+                                     cfg.max_objs))
+    with torch.no_grad():
+        tr.model(batch)
+    assert spans.recorded() == []
+    with _cpu_profile() as prof:
+        tr.train_step(batch)
+    ev = _side_events(prof)
+    net = [e for e in ev if e[0].startswith("net.")]
+    assert [e[0] for e in net] == list(NET_SPANS)
+    for x, y in zip(net, net[1:]):
+        assert x[2] <= y[1], (x, y)
+    forward = _named(ev, "train.forward")
+    assert len(forward) == 1
+    for e in net:
+        assert _inside(e, forward), e
+    assert not _inside(net[0], _named(ev, "train.backward"))
+    assert [s.name for c in spans.recorded() for s in c.spans
+            if s.name.startswith("net.")] == list(NET_SPANS)
